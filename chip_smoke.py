@@ -7,10 +7,18 @@ at full LJSpeech width through the port's ``Synthesizer``.
 
 Phases (none catches its own failure; any mismatch raises and the script
 exits non-zero):
-  1. device, power limit, torch/CUDA versions, kernel build time;
-  2. kernel vs plain version on the card: edge shapes in float32 (tight)
-     and bfloat16, the shapes of a 768-frame mel, and the shapes of the
-     batch-8, 1024-frame main path (timed: kernel, plain, bound);
+  1. device, power limit, torch/CUDA versions, kernel build time, each
+     kernel's registers and stack (``cuobjdump -res-usage``) and the count
+     of tensor-core (HMMA) instructions in the bf16 kernel's SASS, which
+     must not be 0;
+  2. kernel vs plain version on the card: edge shapes at every width of
+     the kernels (C = 16, whose bf16 passes are 16 channels wide, to 256)
+     in float32 (the SIMT kernel) and bfloat16 (the tensor-core kernel),
+     each held to its plain version within about a rounding of its type,
+     the shapes of a 768-frame mel, and the shapes of the batch-8,
+     1024-frame main path
+     (timed: kernel, plain, bound, achieved TFLOP/s of useful work and of
+     the MMA work the kernel issues);
   3. synthesis (random weights from a seed): B=1 from text at T=1, checked
      against the float32 acoustic model on the CPU and the plain vocoder on
      the card; B=8 at 96 tokens (mel bucket 1024) at T=1 and T=2, with the
@@ -34,7 +42,10 @@ KS, DS = (3, 7, 11), (1, 3, 5)
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 F32_TOL = dict(rtol=2e-4, atol=2e-4)    # reassociation only
-BF16_TOL = dict(rtol=0.1, atol=0.05)    # the JAX suite's bf16 tolerance
+# a bf16 kernel makes its plain version's roundings, so the two differ by
+# summation order: an output a bf16 ulp or two apart
+BF16_STAGE_TOL = dict(rtol=2 ** -6, atol=1e-2)
+BF16_TOL = dict(rtol=0.1, atol=0.05)    # the JAX suite's: bf16 vs f32
 TEXT = ("Printing, in the only sense with which we are at present "
         "concerned, differs from most if not from all the arts.")
 
@@ -58,12 +69,47 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def stage_flop(B, C, L, head: bool) -> int:
+    """Useful FLOP of one stage: 18 convs of 2 k C^2 per position, k in
+    {3, 7, 11}, and the head's conv_post (2 * 7 * C per position)."""
+    return 252 * C * C * L * B + (14 * C * L * B if head else 0)
+
+
+def issued_flop(mrf, B, C, L, head: bool, pass_tiles: int = 0) -> int:
+    """FLOP of the MMAs the bf16 kernel issues for one stage: per length
+    tile, each conv over its region (the halo recomputed) rounded up to 16
+    positions, in warp passes of ``pass_tiles`` m16 tiles that always run
+    whole (csrc/mrf_tc.cu's work split).  Over stage_flop, it is the work
+    the tiling adds; with ``pass_tiles`` = 1, the part of it that the halo
+    and the rounding to 16 positions add.  0 means the kernel's own."""
+    pass_tiles = pass_tiles or mrf.PASS_TILES
+    pad = 3 if head else 0
+    tile, _ = mrf.plan_tile(C, L, 2, mrf.receptive_radius(KS, DS) + pad, pad)
+    n_cog = C // 32 if C % 32 == 0 else C // 16   # c_out groups
+    flop = 0
+    for k in KS:
+        half = (k - 1) // 2
+        rem = pad + sum(half * d + half for d in DS)
+        for d in DS:
+            for shrink in (half * d, half):   # conv1, then conv2
+                rem -= shrink
+                tiles_m = -(-(tile + 2 * rem) // 16)
+                units = n_cog * tiles_m
+                for w in range(mrf.WARPS):
+                    u, u_end = (w * units // mrf.WARPS,
+                                (w + 1) * units // mrf.WARPS)
+                    while u < u_end:
+                        u += min(pass_tiles, tiles_m - u % tiles_m, u_end - u)
+                        flop += pass_tiles * 16 * (C // n_cog) * 2 * k * C
+    return flop * -(-L // tile) * B
+
+
 def stage_bound(B, C, L, head: bool):
     """(ms, "operations" | "bytes"): the least time for one stage, the
     larger of its bf16 FLOP at the tensor-core peak and its bytes (x read
     once, output written once, bf16 weights and f32 biases read once) at
     the memory rate."""
-    flop = 252 * C * C * L * B + (14 * C * L * B if head else 0)
+    flop = stage_flop(B, C, L, head)
     nbytes = (C * L * B * 4 + (L * B if head else C * L * B) * 4
               + 126 * C * C * 2 + 18 * C * 4)
     t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
@@ -81,17 +127,62 @@ def check(name, out, ref, tol):
 
 
 def run_stage(mrf, x, packs, dtype, post, streamed):
-    w, b = packs[dtype]
     if streamed:
-        return lambda: mrf.fused_mrf_stage_streamed(x, w, b, KS, DS, dtype)
+        return lambda: mrf.fused_mrf_stage_streamed(x, packs[dtype], KS, DS,
+                                                    dtype)
     p = None if post is None else post[dtype]
-    return lambda: mrf.fused_mrf_stage(x, (w, b), KS, DS, dtype, post=p)
+    return lambda: mrf.fused_mrf_stage(x, packs[dtype], KS, DS, dtype, post=p)
 
 
 def plain_stage(mrf, x, packs, dtype, post):
-    w, b = packs[dtype]
+    w, b, _ = packs[dtype]
     p = None if post is None else post[dtype]
     return lambda: mrf.mrf_stage_plain(x, w, b, KS, DS, dtype, p)
+
+
+def cuda_tool(name: str) -> str:
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", name)
+    return path if os.path.exists(path) else name
+
+
+def kernel_sections(text: str):
+    """{mangled kernel name: its lines} of ``cuobjdump`` output."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function" in line and ":" in line:
+            name = line.split(":", 1)[1].strip() or line.split()[-1]
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out
+
+
+def inspect_library(path: str) -> int:
+    """Log each kernel's registers, stack and spills and return the count
+    of HMMA instructions in the SASS of the tensor-core kernel; raise if it
+    has none, or if the float32 kernel has any."""
+    with open(path + ".log") as f:   # nvcc -Xptxas -v, kept by the build
+        for line in f:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
+                log(f"  ptxas: {line.strip()}")
+    usage = subprocess.run([cuda_tool("cuobjdump"), "-res-usage", path],
+                           capture_output=True, text=True, check=True).stdout
+    for name, lines in kernel_sections(usage).items():
+        log(f"  {name}: "
+            + " ".join(ln.strip() for ln in lines if "REG" in ln))
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", path],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = {name: sum("HMMA" in ln for ln in lines)
+            for name, lines in kernel_sections(sass).items()}
+    log(f"  HMMA instructions per kernel: {hmma}")
+    tc = sum(n for name, n in hmma.items() if "mrf_stage_tc_kernel" in name)
+    simt = sum(n for name, n in hmma.items() if "mrf_stage_kernel" in name)
+    if tc == 0 or simt != 0:
+        raise AssertionError(f"HMMA count: tensor-core kernel {tc}, "
+                             f"float32 kernel {simt}")
+    return tc
 
 
 def main() -> int:
@@ -105,7 +196,11 @@ def main() -> int:
     from cmtts_tpu_torch.cli.synthesize import preprocess_english, random_cmtts
     from cmtts_tpu_torch.core.config import load_configs
     from cmtts_tpu_torch.core.masks import DEFAULT_MEL_BUCKETS, pick_bucket
-    from cmtts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from cmtts_tpu_torch.models.hifigan import (
+        HiFiGANConfig,
+        HiFiGANGenerator,
+        hifigan_apply_fused,
+    )
     from cmtts_tpu_torch.ops import mrf
     from cmtts_tpu_torch.pipeline import Synthesizer
 
@@ -122,15 +217,22 @@ def main() -> int:
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     build_s = mrf.build_kernels(force=True)
-    log(f"# kernel build: {build_s:.1f} s (nvcc, sm_90a)")
+    log(f"# kernel build: {build_s:.1f} s (nvcc, sm_90a) -> "
+        f"{os.path.relpath(mrf.library_path())}")
+    hmma = inspect_library(mrf.library_path())
 
     # -- phase 2: kernel vs plain ------------------------------------------
     torch.manual_seed(0)
     gen = HiFiGANGenerator().to(dev).eval()
-    chans = {gen.stage_channels(i): i for i in range(4)}
+    # a narrow generator's first stage: C = 16, the bf16 kernel's passes of
+    # one pair of n8 tiles
+    narrow = HiFiGANGenerator(HiFiGANConfig(
+        upsample_initial_channel=32)).to(dev).eval()
+    chans = {gen.stage_channels(i): (gen, i) for i in range(4)}
+    chans[narrow.stage_channels(0)] = (narrow, 0)
     dtypes = (torch.float32, torch.bfloat16)
-    packs = {C: {dt: mrf.pack_mrf_params(gen, i, dt) for dt in dtypes}
-             for C, i in chans.items()}
+    packs = {C: {dt: mrf.pack_mrf_params(g_, i, dt) for dt in dtypes}
+             for C, (g_, i) in chans.items()}
     posts = {}
     for C in chans:
         g = torch.Generator(device=dev).manual_seed(C)
@@ -147,7 +249,7 @@ def main() -> int:
         plain = plain_stage(mrf, x, packs[C], dtype, post)
         out, ref = kern(), plain()
         torch.cuda.synchronize()
-        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        tol = F32_TOL if dtype == torch.float32 else BF16_STAGE_TOL
         err = check(f"{label} B={B} C={C} L={L} head={head} {dtype}",
                     out, ref, tol)
         bound_ms, bound_by = stage_bound(B, C, L, head)
@@ -155,18 +257,28 @@ def main() -> int:
         if timed:
             res["ms"] = cuda_ms(kern)
             res["plain_ms"] = cuda_ms(plain)
+            res["flop"] = stage_flop(B, C, L, head)
+            res["tflops"] = res["flop"] / res["ms"] / 1e9
+            issued = issued_flop(mrf, B, C, L, head)
+            res["issued_over_useful"] = issued / res["flop"]
+            res["issued_tflops"] = issued / res["ms"] / 1e9
+            res["halo_over_useful"] = (issued_flop(mrf, B, C, L, head, 1)
+                                       / res["flop"])
         log(f"  {label:9s} {'streamed' if streamed else 'fused':8s} B={B} "
             f"C={C:3d} L={L:6d} head={int(head)} "
             f"{str(dtype).split('.')[-1]:8s} max|err|={err:.3e} "
             + (f"kernel {res['ms']:.3f} ms plain {res['plain_ms']:.3f} ms "
-               if timed else "")
+               f"({res['tflops']:.2f} TFLOP/s useful, "
+               f"{res['issued_tflops']:.2f} issued = "
+               f"{res['issued_over_useful']:.3f}x, of which halo and "
+               f"rounding {res['halo_over_useful']:.3f}x) " if timed else "")
             + f"bound {res['bound_ms']:.4f} ms")
         return res
 
     log("# phase 2: kernel vs plain version (f32 tol "
-        f"{F32_TOL}, bf16 tol {BF16_TOL})")
+        f"{F32_TOL}, bf16 tol {BF16_STAGE_TOL})")
     for dtype in dtypes:
-        for C in (32, 64, 128, 256):
+        for C in (16, 32, 64, 128, 256):
             for L in (40, 50, 300, 1237):
                 for head in ((False,) if C > 128 else (False, True)):
                     case("edge", 2, C, L, head, dtype)
@@ -246,7 +358,7 @@ def main() -> int:
         wall = statistics.median(times)
         return wall / audio, wall, audio
 
-    results = {}
+    results, walls = {}, {}
     r, wall, audio = rtf(synth1, [tokens])
     results["B1_T1"] = r
     log(f"  RTF B=1 T=1: {r:.6f} (median wall {wall * 1e3:.2f} ms for "
@@ -257,6 +369,7 @@ def main() -> int:
         synth = synth1 if T == 1 else Synthesizer(cfg, model, vocoder, T=2)
         r, wall, audio = rtf(synth, batch, mel_bucket=1024)
         results[f"B8_T{T}"] = r
+        walls[f"B8_T{T}"] = wall * 1e3
         log(f"  RTF B=8 T={T} (mel bucket 1024): {r:.6f} (median wall "
             f"{wall * 1e3:.2f} ms for {audio:.3f} s of audio)")
     launches = {fn.__name__: fn.launches for fn in counters}
@@ -265,25 +378,52 @@ def main() -> int:
                              f"{launches}")
     log(f"# main-path launches: {launches}")
 
+    # the vocoder's share of the B=8 wall: hifigan_apply_fused alone on a
+    # mel of the same bucket, timed like the synthesis calls (after the
+    # launch counts were read, so they hold the main path's run only)
+    mel8 = torch.randn(8, 1024, cfg.stft.n_mel_channels, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(4))
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hifigan_apply_fused(synth1.vocoder, mel8, synth1.vocoder_packed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    voc_ms = statistics.median(times[1:]) * 1e3
+    results["B8_vocoder_ms"] = voc_ms
+    log(f"  vocoder alone, B=8 mel 1024: median {voc_ms:.2f} ms "
+        f"({voc_ms / walls['B8_T1']:.1%} of the B=8 T=1 wall)")
+
     # -- phase 4: summary lines --------------------------------------------
-    src = "cmtts_tpu_torch/csrc/mrf.cu"
+    src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
     for name, key, replaces in (
             ("fused_mrf_stage", "fused", "cmtts_tpu/ops/mrf_pallas.py:234"),
             ("fused_mrf_stage_streamed", "streamed",
              "cmtts_tpu/ops/mrf_pallas.py:374")):
         rows = timing[key]
+        ms = sum(r_["ms"] for r_ in rows)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
+            "design": "mma.sync bf16", "float32_design": "simt f32",
+            "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
+            "hmma_in_sass": hmma,
             "max_abs_err": max(r_["err"] for r_ in rows),
-            "ms": sum(r_["ms"] for r_ in rows),
+            "ms": ms,
+            "tflops": sum(r_["flop"] for r_ in rows) / ms / 1e9,
             "plain_ms": sum(r_["plain_ms"] for r_ in rows),
             "bound_ms": sum(r_["bound_ms"] for r_ in rows),
             "bound_by": ("operations" if all(
                 r_["bound_by"] == "operations" for r_ in rows) else "bytes"),
             "library_ms": None})
-    print(json.dumps({"rtf": results, "build_s": build_s}))
+    stages = [{k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms", "tflops",
+                                     "issued_tflops", "issued_over_useful",
+                                     "halo_over_useful", "err")}
+              for r_ in timing["streamed"] + timing["fused"]]
+    print(json.dumps({"rtf": results, "build_s": build_s,
+                      "stages_B8": stages}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -115,7 +115,8 @@ class HiFiGANGenerator(nn.Module):
 
 def pack_generator(gen: HiFiGANGenerator, compute_dtype=torch.bfloat16):
     """Per-stage packed weights for :func:`hifigan_apply_fused`: a list of
-    ``(w, b)``, plus the packed head."""
+    :func:`pack_mrf_params` packs ``(w, b, w_frag)``, plus the packed
+    head."""
     packs = [pack_mrf_params(gen, i, compute_dtype)
              for i in range(len(gen.cfg.upsample_rates))]
     return packs, pack_post_params(gen, compute_dtype)
@@ -144,11 +145,10 @@ def hifigan_apply_fused(gen: HiFiGANGenerator, mel: torch.Tensor,
     for i in range(n_stages):
         x = getattr(gen, f"up_{i}")(F.leaky_relu(x, LRELU_SLOPE)).contiguous()
         last = i == n_stages - 1
-        w, b = stages[i]
         if gen.stage_channels(i) > FUSED_MAX_C:
-            x = fused_mrf_stage_streamed(x, w, b, ks, ds, compute_dtype)
+            x = fused_mrf_stage_streamed(x, stages[i], ks, ds, compute_dtype)
         else:
-            x = fused_mrf_stage(x, (w, b), ks, ds, compute_dtype,
+            x = fused_mrf_stage(x, stages[i], ks, ds, compute_dtype,
                                 post=post if last else None)
             if last:
                 return x  # the fused head already applied tanh

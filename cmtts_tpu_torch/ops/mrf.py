@@ -8,10 +8,15 @@ Counterparts of ``cmtts_tpu/ops/mrf_pallas.py``:
 - :func:`fused_mrf_stage_streamed` replaces ``fused_mrf_stage_streamed``
   (the weight-streaming Pallas kernel for the C = 256 stage).
 
-Both launch ``mrf_stage`` of ``csrc/mrf.cu`` (hand-written CUDA C++ for
-sm_90a; its header says what bounds it on an H100 and how the design deals
-with that).  The library is built with ``nvcc`` into ``build/`` at the
-repository root on first use and loaded with ``ctypes``.
+Both launch ``mrf_stage`` of the hand-written CUDA C++ for sm_90a in
+``csrc/``: in float32 the SIMT kernel of ``csrc/mrf.cu``, in bfloat16 (the
+main path) the tensor-core kernel of ``csrc/mrf_tc.cu``, which reads its
+weights in ``mma.sync`` B-fragment order (:func:`pack_mrf_fragments`; a
+stage's pack carries both layouts and the wrapper picks one).  The
+sources' headers say what bounds the kernels on an H100 and how their
+designs deal with that.  The library is built with ``nvcc`` into ``build/``
+at the repository root on first use, under a name that hashes every file of
+``csrc/`` and the flags, and loaded with ``ctypes``.
 
 Layout is channels-first (B, C, L), the kernel's and ``Conv1d``'s layout;
 x and the output are float32, and ``compute_dtype`` (float32 or bfloat16)
@@ -24,11 +29,13 @@ CPU; for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
@@ -41,8 +48,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SOURCE = os.path.join(_ROOT, "cmtts_tpu_torch", "csrc", "mrf.cu")
-_LIBRARY = os.path.join(_ROOT, "build", "libcmtts_mrf.so")
+_CSRC = os.path.join(_ROOT, "cmtts_tpu_torch", "csrc")
+_BUILD = os.path.join(_ROOT, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ROW_PAD = 8                  # bf16 pad of a position's activation row
+# the bf16 kernel's work split (kWarps of csrc/mrf.cuh, kMT of
+# csrc/mrf_tc.cu): warps of a block, m16 tiles of a warp pass
+WARPS, PASS_TILES = 8, 8
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -66,21 +79,71 @@ def _nvcc() -> str:
     return found
 
 
+def library_path(csrc: str = _CSRC, flags=NVCC_FLAGS) -> str:
+    """Where the library built from ``csrc`` with ``flags`` lives: its name
+    hashes the name and bytes of every file of ``csrc`` (sources and
+    headers) and the flags, so that any change to them asks for a build."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read() + b"\0")
+    h.update("\0".join(flags).encode())
+    return os.path.join(_BUILD, f"libcmtts_mrf-{h.hexdigest()[:16]}.so")
+
+
+def compile_library(lib: str) -> str:
+    """Compile each ``.cu`` file of ``csrc/`` to an object with an ``nvcc``
+    of its own, all started together, and link the objects into the shared
+    library ``lib``.  Returns the compiler's output (ptxas registers and
+    spills per kernel); raises if a step fails."""
+    nvcc = _nvcc()
+    sources = [os.path.join(_CSRC, n) for n in sorted(os.listdir(_CSRC))
+               if n.endswith(".cu")]
+    objs = [f"{lib}.{os.path.basename(s)}.o" for s in sources]
+
+    def run(cmd):
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
+        return res.stdout + res.stderr
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        logs = list(pool.map(
+            run, [[nvcc, *NVCC_FLAGS, "-c", s, "-o", o]
+                  for s, o in zip(sources, objs)]))
+    logs.append(run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]))
+    for o in objs:
+        os.remove(o)
+    return "".join(logs)
+
+
 def build_kernels(force: bool = False) -> float:
-    """Compile ``csrc/mrf.cu`` into ``build/libcmtts_mrf.so`` for sm_90a
-    unless an up-to-date library exists.  Returns the seconds spent."""
-    if (not force and os.path.exists(_LIBRARY)
-            and os.path.getmtime(_LIBRARY) >= os.path.getmtime(_SOURCE)):
+    """Build the library of ``csrc/`` for sm_90a (:func:`compile_library`)
+    unless the library of these sources and flags exists.  The compiler's
+    output is kept beside it in ``<library>.log``.  Returns the seconds
+    spent."""
+    lib = library_path()
+    if not force and os.path.exists(lib):
         return 0.0
-    os.makedirs(os.path.dirname(_LIBRARY), exist_ok=True)
-    tmp = f"{_LIBRARY}.{os.getpid()}.tmp"
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    subprocess.run(
-        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SOURCE],
-        check=True)
-    os.replace(tmp, _LIBRARY)
+    log = compile_library(tmp)
+    with open(lib + ".log", "w") as f:
+        f.write(log)
+    os.replace(tmp, lib)
     return time.perf_counter() - t0
+
+
+def load_library(path: str):
+    """The built library at ``path``, with ``mrf_stage``'s C signature."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.mrf_stage.argtypes = [i, p, p, p, p, p, p, p,
+                              i, i, i, i, i, i, i, i, ip, ip, i, i, p]
+    lib.mrf_stage.restype = ctypes.c_int
+    return lib
 
 
 def _library():
@@ -88,34 +151,72 @@ def _library():
     with _lib_lock:
         if _lib is None:
             build_kernels()
-            lib = ctypes.CDLL(_LIBRARY)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            ip = ctypes.POINTER(ctypes.c_int)
-            lib.mrf_stage.argtypes = [i, p, p, p, p, p, p, p,
-                                      i, i, i, i, i, i, i, i, ip, ip, i, i, p]
-            lib.mrf_stage.restype = ctypes.c_int
-            _lib = lib
+            _lib = load_library(library_path())
     return _lib
 
 
 # -- packers ----------------------------------------------------------------
 
 def pack_mrf_params(generator, stage: int, dtype=torch.float32):
-    """Pack the ``res_{stage}_{j}`` convs of a port ``HiFiGANGenerator`` into
-    the kernel's layout: ``(w, b)`` with ``w`` the concatenation, per
+    """Pack the ``res_{stage}_{j}`` convs of a port ``HiFiGANGenerator`` for
+    both entry points: ``(w, b, w_frag)`` with ``w`` the concatenation, per
     ResBlock, pair and conv (conv1, conv2), of the weight as
-    [tap][c_in][c_out] in ``dtype``, and ``b`` the float32 biases
-    [block][pair][conv][C].  Counterpart of ``pack_mrf_params`` and of
-    ``pack_mrf_params_streamed``: both kernels take this one layout."""
+    [tap][c_in][c_out] in ``dtype``, ``b`` the float32 biases
+    [block][pair][conv][C], and ``w_frag`` the same weights in the bfloat16
+    kernel's order (:func:`pack_mrf_fragments`) -- None in float32, whose
+    kernel and plain version read ``w``, and where C is not a multiple of
+    16.  Counterpart of ``pack_mrf_params`` and of
+    ``pack_mrf_params_streamed``."""
+    ks = generator.cfg.resblock_kernel_sizes
     ws, bs = [], []
-    for j in range(len(generator.cfg.resblock_kernel_sizes)):
+    for j in range(len(ks)):
         block = getattr(generator, f"res_{stage}_{j}")
         for p in range(len(block.dilations)):
             for name in (f"conv1_{p}", f"conv2_{p}"):
                 conv = getattr(block, name)
                 ws.append(conv.weight.detach().permute(2, 1, 0).reshape(-1))
                 bs.append(conv.bias.detach().float())
-    return torch.cat(ws).to(dtype).contiguous(), torch.cat(bs).contiguous()
+    w = torch.cat(ws).to(dtype).contiguous()
+    C = conv.weight.shape[0]
+    w_frag = (pack_mrf_fragments(w, C, ks, len(block.dilations))
+              if dtype == torch.bfloat16 and C % 16 == 0 else None)
+    return w, torch.cat(bs).contiguous(), w_frag
+
+
+def fragment_order(C: int, k: int) -> torch.Tensor:
+    """The permutation that puts one conv's [tap][c_in][c_out] weights in
+    the bf16 kernel's ``mma.sync.m16n8k16`` B-fragment order:
+    ``frag = w.reshape(-1)[fragment_order(C, k)]``.
+
+    The order is [tap][c_in step s of 16][c_out pair q of n8 tiles][lane]
+    [8]: lane ``4 g + t`` holds b0, b1 of n8 tile 2q, then b0, b1 of tile
+    2q + 1, where (PTX's B layout) b0 = w[16 s + 2t + (0, 1)][8 n + g] and
+    b1 = w[16 s + 2t + 8 + (0, 1)][8 n + g] of n8 tile n.  So a lane reads
+    its fragments of a step and a pair with one 16-byte load."""
+    tap, s, q, lane, e = torch.meshgrid(
+        torch.arange(k), torch.arange(C // 16), torch.arange(C // 16),
+        torch.arange(32), torch.arange(8), indexing="ij")
+    n8 = 2 * q + e // 4
+    ci = 16 * s + 2 * (lane % 4) + 8 * (e // 2 % 2) + e % 2
+    co = 8 * n8 + lane // 4
+    return ((tap * C + ci) * C + co).reshape(-1)
+
+
+def pack_mrf_fragments(w, C: int, kernel_sizes=(3, 7, 11), n_pairs=3):
+    """:func:`pack_mrf_params`'s weights ``w`` with each conv reordered by
+    :func:`fragment_order`: the layout the bfloat16 kernel reads.  A pure
+    permutation, made once when the weights are packed."""
+    if C % 16:
+        raise ValueError(f"the bf16 kernel takes C a multiple of 16, not {C}")
+    if w.numel() != 2 * n_pairs * sum(kernel_sizes) * C * C:
+        raise ValueError("packed weights do not match the stage")
+    out, off = [], 0
+    for k in kernel_sizes:
+        order = fragment_order(C, k).to(w.device)
+        for _ in range(2 * n_pairs):
+            out.append(w[off: off + k * C * C][order])
+            off += k * C * C
+    return torch.cat(out).contiguous()
 
 
 def pack_post_params(generator, dtype=torch.float32):
@@ -186,7 +287,8 @@ def plan_tile(C: int, L: int, itemsize: int, halo: int, pad: int):
     """(tile, in_shared): the largest length tile (a multiple of 32, at most
     512) whose y/h buffers (and, with the head, f32 ResBlock sum) fit in
     shared memory; when none does, a 256 tile whose buffers live in a
-    global-memory scratch.  ``pad`` > 0 means the head is fused."""
+    global-memory scratch (float32 only).  ``pad`` > 0 means the head is
+    fused."""
     cap = min(MAX_TILE, -(-L // 32) * 32)
     for tile in range(cap, 0, -32):
         if _smem_bytes(C, tile, itemsize, halo, pad, True) <= SMEM_LIMIT:
@@ -195,27 +297,38 @@ def plan_tile(C: int, L: int, itemsize: int, halo: int, pad: int):
 
 
 def _smem_bytes(C, tile, itemsize, halo, pad, in_shared):
-    ab = 2 * C * (tile + 2 * halo) * itemsize if in_shared else 0
+    """Shared memory of a block: y and h, float32 as [C][W], bfloat16 as
+    [W][C + ROW_PAD]; with the head, the f32 ResBlock sum [C][tile + 2 pad].
+    """
+    row = C + ROW_PAD if itemsize == 2 else C
+    ab = 2 * row * (tile + 2 * halo) * itemsize if in_shared else 0
     head = C * (tile + 2 * pad) * 4 if pad else 0
     return ab + head
 
 
-def _launch(x, w, b, kernel_sizes, dilations, compute_dtype, post):
+def _launch(x, packed, kernel_sizes, dilations, compute_dtype, post):
     if compute_dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported compute dtype {compute_dtype}")
     if x.dtype != torch.float32 or x.dim() != 3:
         raise ValueError("x must be a float32 (B, C, L) tensor")
     B, C, L = x.shape
+    bf16 = compute_dtype == torch.bfloat16
+    w, b, w_frag = packed
+    kw = w_frag if bf16 else w       # the layout this dtype's kernel reads
     n_conv = 2 * len(kernel_sizes) * len(dilations)
-    if C % 8 or len(kernel_sizes) > 4 or len(dilations) > 4:
+    if (C % (16 if bf16 else 8) or len(kernel_sizes) > 4
+            or len(dilations) > 4):
         raise ValueError(f"unsupported stage shape C={C} "
                          f"kernel_sizes={kernel_sizes} dilations={dilations}")
     n_weights = 2 * len(dilations) * sum(kernel_sizes) * C * C
-    if w.dtype != compute_dtype or w.numel() != n_weights:
+    if kw is None:
+        raise ValueError("the bf16 kernel needs the weights in fragment "
+                         "order: pack them with pack_mrf_params")
+    if kw.dtype != compute_dtype or kw.numel() != n_weights:
         raise ValueError("packed weights do not match the stage")
     if b.dtype != torch.float32 or b.numel() != n_conv * C:
         raise ValueError("packed biases do not match the stage")
-    tensors = [x, w, b] + (list(post) if post is not None else [])
+    tensors = [x, kw, b] + (list(post) if post is not None else [])
     if any(t.device != x.device or not t.is_contiguous() for t in tensors):
         raise ValueError("all tensors must be contiguous and on one device")
     pad = 0
@@ -232,6 +345,9 @@ def _launch(x, w, b, kernel_sizes, dilations, compute_dtype, post):
     n_tiles = -(-L // tile)
     scratch = None
     if not in_shared:
+        if bf16:
+            raise ValueError(f"C={C} is too wide for the bf16 kernel's "
+                             "shared memory")
         scratch = torch.empty(B * n_tiles * 2 * C * (tile + 2 * halo),
                               dtype=compute_dtype, device=x.device)
     out = torch.empty((B, L) if post is not None else (B, C, L),
@@ -240,7 +356,7 @@ def _launch(x, w, b, kernel_sizes, dilations, compute_dtype, post):
     ds = (ctypes.c_int * len(dilations))(*dilations)
     err = _library().mrf_stage(
         _DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(),
-        w.data_ptr(), b.data_ptr(),
+        kw.data_ptr(), b.data_ptr(),
         post[0].data_ptr() if post is not None else None,
         post[1].data_ptr() if post is not None else None,
         scratch.data_ptr() if scratch is not None else None,
@@ -258,18 +374,18 @@ def fused_mrf_stage(x, packed, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
     """One MRF stage with its weights read from L2 by the CUDA kernel
     (counterpart of ``mrf_pallas.fused_mrf_stage``).
 
-    x: (B, C, L) float32.  packed: ``(w, b)`` from :func:`pack_mrf_params`
-    in ``compute_dtype``.  post: optional ``(w, b)`` from
-    :func:`pack_post_params` — fuses leaky_relu(0.01) -> conv_post -> tanh
-    and returns the (B, L) waveform instead of the (B, C, L) stage output.
+    x: (B, C, L) float32.  packed: ``(w, b, w_frag)`` from
+    :func:`pack_mrf_params` in ``compute_dtype``.  post: optional ``(w, b)``
+    from :func:`pack_post_params` — fuses leaky_relu(0.01) -> conv_post ->
+    tanh and returns the (B, L) waveform instead of the (B, C, L) stage
+    output.
     """
-    w, b = packed
     if x.device.type == "cpu":
-        return mrf_stage_plain(x, w, b, kernel_sizes, dilations,
-                               compute_dtype, post)
+        return mrf_stage_plain(x, packed[0], packed[1], kernel_sizes,
+                               dilations, compute_dtype, post)
     if x.device.type != "cuda":
         raise ValueError(f"no MRF kernel for device {x.device}")
-    out = _launch(x, w, b, kernel_sizes, dilations, compute_dtype, post)
+    out = _launch(x, packed, kernel_sizes, dilations, compute_dtype, post)
     fused_mrf_stage.launches += 1
     return out
 
@@ -277,7 +393,7 @@ def fused_mrf_stage(x, packed, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
 fused_mrf_stage.launches = 0
 
 
-def fused_mrf_stage_streamed(x, w, b, kernel_sizes=(3, 7, 11),
+def fused_mrf_stage_streamed(x, packed, kernel_sizes=(3, 7, 11),
                              dilations=(1, 3, 5),
                              compute_dtype=torch.bfloat16):
     """The wide (C = 256) MRF stage, no head (counterpart of
@@ -285,13 +401,14 @@ def fused_mrf_stage_streamed(x, w, b, kernel_sizes=(3, 7, 11),
     not fit in VMEM and were streamed from HBM; on Hopper no stage's weights
     fit in shared memory, and the kernel reads them from L2 for every
     stage.  Where its activation buffers do not fit in shared memory (C =
-    256 in float32), they live in a global-memory scratch."""
+    256 in float32), they live in a global-memory scratch.  ``packed`` as
+    for :func:`fused_mrf_stage`."""
     if x.device.type == "cpu":
-        return mrf_stage_plain(x, w, b, kernel_sizes, dilations,
-                               compute_dtype)
+        return mrf_stage_plain(x, packed[0], packed[1], kernel_sizes,
+                               dilations, compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no MRF kernel for device {x.device}")
-    out = _launch(x, w, b, kernel_sizes, dilations, compute_dtype, None)
+    out = _launch(x, packed, kernel_sizes, dilations, compute_dtype, None)
     fused_mrf_stage_streamed.launches += 1
     return out
 

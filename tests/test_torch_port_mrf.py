@@ -100,9 +100,8 @@ def test_streamed_stage_matches_pallas_interpret():
     ref = mrf_pallas.fused_mrf_stage_streamed(
         jnp.asarray(x), w, b, tile=256, interpret=True,
         compute_dtype=jnp.float32, dot_dtype=jnp.float32)
-    tw, tb = mrf.pack_mrf_params(stage, 0)
-    out = mrf.fused_mrf_stage_streamed(to_torch(x), tw, tb,
-                                       compute_dtype=torch.float32)
+    out = mrf.fused_mrf_stage_streamed(
+        to_torch(x), mrf.pack_mrf_params(stage, 0), compute_dtype=torch.float32)
     np.testing.assert_allclose(out.transpose(1, 2).numpy(), np.asarray(ref),
                                rtol=5e-4, atol=5e-4)
     assert mrf.fused_mrf_stage_streamed.launches == 0
@@ -122,13 +121,24 @@ def test_plain_bf16_stays_near_f32():
 
 
 def test_plan_tile_fits_shared_memory():
-    # bf16 at every generator width, with and without the head
+    # bf16 at every generator width, with and without the head, in the
+    # tensor-core kernel's [W][C + 8] rows
     for C in (32, 64, 128, 256):
         for pad in (0, 3):
             halo = mrf.receptive_radius(KS, DS) + pad
             tile, in_shared = mrf.plan_tile(C, 100000, 2, halo, pad)
             assert in_shared and tile >= 32 and tile % 32 == 0
-            assert mrf._smem_bytes(C, tile, 2, halo, pad, True) <= mrf.SMEM_LIMIT
+            nbytes = mrf._smem_bytes(C, tile, 2, halo, pad, True)
+            assert nbytes <= mrf.SMEM_LIMIT
+            assert nbytes == (2 * (tile + 2 * halo) * (C + 8) * 2
+                              + (C * (tile + 2 * pad) * 4 if pad else 0))
+            assert (C + 8) * 2 % 32 == 16  # odd multiple of 16 bytes
+    # the main path's tiles: 96 at C=256, 288 at 128, 512 at 64 and at 32
+    # with the head
+    halo = mrf.receptive_radius(KS, DS)
+    for C, pad, want in ((256, 0, 96), (128, 0, 288), (64, 0, 512),
+                         (32, 3, 512)):
+        assert mrf.plan_tile(C, 100000, 2, halo + pad, pad) == (want, True)
     # f32 at C=256 does not fit: global-memory scratch
     assert mrf.plan_tile(256, 100000, 4, 60, 0) == (256, False)
     assert mrf.plan_tile(32, 40, 2, 63, 3)[0] == 64
@@ -205,10 +215,11 @@ def test_bridge_hifigan_strict_roundtrip(flax_generator):
 
 
 def emulate_kernel(x, w, b, tile, halo, post=None):
-    """The CUDA kernel's tiling in numpy-like torch: per length tile, a
+    """The CUDA kernels' tiling in numpy-like torch: per length tile, a
     window with a halo, each conv computed only on the region later convs
-    need, the rest of the buffer poisoned with NaN so that a read outside
-    the computed region shows in the result."""
+    need (rounded up to 16 rows, as the bf16 kernel computes it), the rest
+    of the buffer poisoned with NaN so that a read outside the computed
+    region shows in the result."""
     B, C, L = x.shape
     pad = 0 if post is None else (post[0].shape[0] - 1) // 2
     W = tile + 2 * halo
@@ -228,11 +239,19 @@ def emulate_kernel(x, w, b, tile, halo, post=None):
                 y = xw.clone()
 
                 def conv(src, wt, bias, d, rem):
-                    p = torch.arange(halo - rem, halo + tile + rem)
+                    lo, hi = halo - rem, halo + tile + rem
+                    p = torch.arange(lo, hi)
+                    # the region rounded up to the bf16 kernel's 16-row
+                    # m tiles; a padding row reads the last position's
+                    # inputs (the kernel's clamp) and is never stored
+                    rows = torch.arange(lo, lo + -(-(hi - lo) // 16) * 16)
+                    rows = rows.clamp(max=hi - 1)
                     o = torch.full((C, W), float("nan"))
-                    s = sum(wt[:, :, tap] @ src[:, p + (tap - half) * d]
+                    s = sum(wt[:, :, tap] @ src[:, rows + (tap - half) * d]
                             for tap in range(k)) + bias[:, None]
-                    o[:, p] = torch.where(valid[p], s, torch.zeros(()))
+                    assert torch.isfinite(s).all()
+                    o[:, p] = torch.where(valid[p], s[:, :hi - lo],
+                                          torch.zeros(()))
                     return o, p
 
                 for (w1, b1, w2, b2), d in zip(pairs, DS):
@@ -267,10 +286,10 @@ def test_kernel_tiling_matches_plain(L, tile, head):
     _, stage = flax_stage(C, seed=4)
     x = torch.from_numpy(
         np.random.RandomState(4).randn(2, C, L).astype(np.float32) * 0.3)
-    w, b = mrf.pack_mrf_params(stage, 0)
+    packed = w, b, _ = mrf.pack_mrf_params(stage, 0)
     post = mrf.pack_post_params(stage) if head else None
     halo = mrf.receptive_radius(KS, DS) + (3 if head else 0)
-    ref = mrf.fused_mrf_stage(x, (w, b), post=post)
+    ref = mrf.fused_mrf_stage(x, packed, post=post)
     with torch.no_grad():
         out = emulate_kernel(x, w, b, tile, halo, post)
     assert torch.isfinite(out).all()
@@ -282,7 +301,7 @@ def test_launch_rejects_malformed_inputs():
     to the library (checked on CPU tensors: every case fails first)."""
     C, L = 16, 40
     _, stage = flax_stage(C, seed=5)
-    w, b = mrf.pack_mrf_params(stage, 0)
+    w, b, _ = mrf.pack_mrf_params(stage, 0)
     x = torch.zeros(1, C, L)
     post = mrf.pack_post_params(stage)
     bad = [
@@ -300,4 +319,12 @@ def test_launch_rejects_malformed_inputs():
     ]
     for xx, ww, bb, dt, pp in bad:
         with pytest.raises(ValueError):
-            mrf._launch(xx, ww, bb, KS, DS, dt, pp)
+            mrf._launch(xx, (ww, bb, None), KS, DS, dt, pp)
+    # bf16: the tensor-core kernel reads the fragment-ordered weights
+    wb, _, wf = mrf.pack_mrf_params(stage, 0, torch.bfloat16)
+    for frag in (None, wf[:-1], wf.float(), wf.view(2, -1).t()):
+        with pytest.raises(ValueError):
+            mrf._launch(x, (wb, b, frag), KS, DS, torch.bfloat16, None)
+    with pytest.raises(ValueError):                          # C % 16
+        mrf._launch(torch.zeros(1, 8, L), (wb[: 2 * 3 * 21 * 64], b[:144],
+                    wf[: 2 * 3 * 21 * 64]), KS, DS, torch.bfloat16, None)
