@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the MRF kernels,
 hold each against its plain PyTorch version on the card, then synthesise
-at full LJSpeech width through the port's ``Synthesizer``.
+at full LJSpeech width through the port's ``Synthesizer``, and zero-shot
+at full VCTK width with both speaker embedders and every sampler.
 
     python3 chip_smoke.py
 
@@ -23,8 +24,19 @@ exits non-zero):
      against the float32 acoustic model on the CPU and the plain vocoder on
      the card; B=8 at 96 tokens (mel bucket 1024) at T=1 and T=2, with the
      real-time factor.  Launch counters are zeroed before this phase.
-  4. a ``{"kernels": [...]}`` line, the card's name and power limit, and
-     a last line ``{"ok": true, "device": {...}}``.
+  5. zero-shot and samplers at full VCTK width (random weights from a
+     seed): a 3 s reference wav embedded by DeepSpeaker and by GE2E on the
+     card, each against the same embedder on the CPU (float32, TF32 off);
+     B=1 synthesis with that embedding against the CPU float32 port and
+     the plain vocoder, and a second voice must move the mel; B=1 and
+     B=8 x 96 tokens (mel 1024, 8 voices) RTF; every ODE sampler and
+     our_multistep in float32 against the CPU on the same injected noise;
+     heun with 18 levels at B=8 in bf16; ``synthesize_long`` over three
+     chunks; the zero-shot CLI from a reference wav.  Launch counters are
+     zeroed before its synthesis calls and must all rise again.
+  4. a ``{"kernels": [...]}`` line (launches of phases 3 and 5), the
+     card's name and power limit, and a last line
+     ``{"ok": true, "device": {...}}``.
 
 Needs CUDA; exits non-zero without it.
 """
@@ -185,6 +197,270 @@ def inspect_library(path: str) -> int:
     return tc
 
 
+def counted_synthesis(synth, seqs, counters, hop, **kw):
+    """One synthesis call that must launch each MRF kernel as a synthesis
+    call does (3 fused stages, 1 streamed) and return finite outputs."""
+    import torch
+
+    before = [fn.launches for fn in counters]
+    mel, lens, wav = synth(seqs, **kw)
+    rose = [fn.launches - b for fn, b in zip(counters, before)]
+    if rose != [3, 1]:
+        raise AssertionError(f"kernel launches per call {rose} != [3, 1]")
+    t_mel = mel.shape[1]
+    if wav.shape != (len(seqs), t_mel * hop) or not (
+            torch.from_numpy(wav).isfinite().all()
+            and torch.from_numpy(mel).isfinite().all()):
+        raise AssertionError(f"bad output: wav {wav.shape} mel {mel.shape}")
+    return mel, lens, wav
+
+
+def timed_rtf(synth, seqs, counters, hop, sr, reps=5, **kw):
+    """(RTF, median wall s, s of audio) over ``reps`` counted calls after a
+    warm-up, each ending in a device synchronise."""
+    import torch
+
+    counted_synthesis(synth, seqs, counters, hop, **kw)     # warm-up
+    times, audio = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lens_, _ = counted_synthesis(synth, seqs, counters, hop, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        audio = float(lens_.sum()) * hop / sr
+    wall = statistics.median(times)
+    return wall / audio, wall, audio
+
+
+def reference_wav(seed: int, seconds: float = 3.0, sr: int = 22050):
+    """A voiced-looking reference recording from a seed: five harmonics of
+    a random f0 with random phases and weights, gated at a syllable rate,
+    over a little noise."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    n = int(seconds * sr)
+    tt = np.arange(n) / sr
+    f0 = rs.uniform(90, 220)
+    tone = sum(np.sin(2 * np.pi * f0 * h * tt + rs.uniform(0, 2 * np.pi))
+               * rs.uniform(0.2, 1.0) / h for h in range(1, 6))
+    gate = np.sin(2 * np.pi * rs.uniform(2, 4) * tt) > -0.3
+    return (0.2 * tone * gate + 0.01 * rs.randn(n)).astype(np.float32)
+
+
+def zero_shot_phase(counters, vocoder, root: str) -> dict:
+    """Phase 5 at full VCTK width (random weights from a seed): embedders
+    on the card against the CPU, zero-shot synthesis (checked, then timed),
+    every new sampler against the CPU, long-form synthesis and the
+    zero-shot CLI.  Returns the readings and the kernel launches of the
+    zero-shot path; raises on any mismatch."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from cmtts_tpu_torch.cli.synthesize import preprocess_english, random_cmtts
+    from cmtts_tpu_torch.core.config import load_configs
+    from cmtts_tpu_torch.core.masks import DEFAULT_MEL_BUCKETS, pick_bucket
+    from cmtts_tpu_torch.models.speaker import (
+        DeepSpeakerInference,
+        GE2EInference,
+        deepspeaker_from_checkpoint,
+        ge2e_from_checkpoint,
+    )
+    from cmtts_tpu_torch.pipeline import Synthesizer, synthesize_long
+
+    dev = torch.device("cuda")
+    cfg = load_configs("VCTK")
+    hop, sr = cfg.stft.hop_length, cfg.stft.sampling_rate
+    out = {}
+    log("# phase 5: zero-shot and samplers (VCTK config, random weights)")
+
+    # 1. embedders: the card (cuDNN convs and LSTM, TF32 off) vs the CPU
+    wav_ref = reference_wav(0)
+    embed = {}
+    for name, make, infer, run in (
+            ("DeepSpeaker", deepspeaker_from_checkpoint, DeepSpeakerInference,
+             lambda e, w: e.predict_embedding(w, sr)),
+            ("GE2E", ge2e_from_checkpoint, GE2EInference,
+             lambda e, w: e.embed_utterance(w))):
+        model = make()
+        on_cpu = infer(copy.deepcopy(model), "cpu")
+        on_gpu = infer(model, dev)
+        emb = run(on_gpu, wav_ref)
+        err = check(f"{name} embedding, card vs CPU", torch.from_numpy(emb),
+                    torch.from_numpy(run(on_cpu, wav_ref)),
+                    dict(rtol=0, atol=1e-4))
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(on_gpu, wav_ref)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if name == "DeepSpeaker":
+            x = torch.randn(1, 160, 64, 1, device=dev)
+        else:   # the partials of a 3 s utterance
+            x = torch.rand(3, 160, 40, device=dev)
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: on_gpu.model(x), reps=10)
+            # PyTorch's default lets cuDNN convs (not the LSTM) use TF32
+            torch.backends.cudnn.allow_tf32 = True
+            fwd_tf32 = cuda_ms(lambda: on_gpu.model(x), reps=10)
+            torch.backends.cudnn.allow_tf32 = False
+        out[f"{name}_ms_per_utterance"] = statistics.median(times) * 1e3
+        out[f"{name}_forward_ms"] = fwd
+        out[f"{name}_forward_ms_cudnn_tf32"] = fwd_tf32
+        log(f"  {name}: {emb.shape[0]} features, max|err| card vs CPU "
+            f"{err:.3e}; {out[f'{name}_ms_per_utterance']:.2f} ms per 3 s "
+            f"utterance (host features included), forward {fwd:.3f} ms, "
+            f"{fwd_tf32:.3f} ms with cuDNN TF32 (input {tuple(x.shape)})")
+        embed[name] = (emb, on_gpu)
+    emb, ds = embed["DeepSpeaker"]
+    if emb.shape[0] != cfg.model.external_speaker_dim:
+        raise AssertionError(f"DeepSpeaker width {emb.shape[0]}")
+
+    for fn in counters:
+        fn.launches = 0
+
+    def counted(synth, seqs, **kw):
+        return counted_synthesis(synth, seqs, counters, hop, **kw)
+
+    # 2. B=1, T=1 with that embedding: mel vs the CPU f32 port, wav vs the
+    # plain vocoder, and another voice changes the mel
+    model = random_cmtts(cfg, seed=3)
+    synth1 = Synthesizer(cfg, model, vocoder, T=1)
+    tokens = preprocess_english(TEXT, cfg.data.lexicon_path,
+                                list(cfg.data.text_cleaners))
+    t_mel = pick_bucket(min(len(tokens) * 10, cfg.model.max_seq_len),
+                        DEFAULT_MEL_BUCKETS)
+    x_T = torch.randn(1, t_mel, cfg.stft.n_mel_channels,
+                      generator=torch.Generator().manual_seed(5)) \
+        * synth1.sched.sigma_max
+    mel, lens, wav = counted(synth1, [tokens], spker_embeds=emb[None],
+                             x_T=x_T)
+    with torch.no_grad():
+        wav_plain = vocoder(torch.from_numpy(mel).to(dev)).cpu()
+    err_voc = check("zero-shot B=1 vocoder kernels vs plain f32 vocoder",
+                    torch.from_numpy(wav), wav_plain, BF16_TOL)
+    cpu_model = random_cmtts(cfg, seed=3)
+    cpu_synth = Synthesizer(cfg, cpu_model, None, T=1,
+                            compute_dtype=torch.float32, device="cpu")
+    mel_cpu, lens_cpu, _ = cpu_synth([tokens], spker_embeds=emb[None],
+                                     x_T=x_T)
+    if not (lens_cpu == lens).all():
+        raise AssertionError(f"mel_lens {lens} != CPU f32 {lens_cpu}")
+    err_mel = check("zero-shot B=1 mel vs CPU f32", torch.from_numpy(mel),
+                    torch.from_numpy(mel_cpu), BF16_TOL)
+    emb2 = ds.predict_embedding(reference_wav(1), sr)
+    mel2, _, _ = counted(synth1, [tokens], spker_embeds=emb2[None], x_T=x_T)
+    moved = float(np.abs(mel2 - mel).max())
+    if moved <= 1e-3:
+        raise AssertionError(f"another voice moved the mel by {moved}")
+    log(f"  B=1 T=1: {len(tokens)} tokens, mel bucket {t_mel}, mel_len "
+        f"{int(lens[0])}; max|err| mel vs CPU f32 {err_mel:.3e}, wav vs "
+        f"plain vocoder {err_voc:.3e}; another voice moves the mel by "
+        f"{moved:.3e}")
+    out["err_mel_B1"], out["err_wav_B1"] = err_mel, err_voc
+
+    # 3. RTF: B=1 from text, and B=8 x 96 tokens at mel 1024 with 8 voices
+    r, wall, audio = timed_rtf(synth1, [tokens], counters, hop, sr,
+                               spker_embeds=emb[None])
+    out["B1_T1_rtf"], out["B1_T1_wall_ms"] = r, wall * 1e3
+    log(f"  zero-shot RTF B=1 T=1: {r:.6f} (median wall {wall * 1e3:.2f} ms "
+        f"for {audio:.3f} s of audio)")
+    voices = np.stack([ds.predict_embedding(reference_wav(10 + i, 1.5), sr)
+                       for i in range(8)])
+    batch = [np.random.RandomState(i).randint(13, 140, 96).astype(np.int32)
+             for i in range(8)]
+    r, wall, audio = timed_rtf(synth1, batch, counters, hop, sr,
+                               spker_embeds=voices, mel_bucket=1024)
+    out["B8_T1_rtf"], out["B8_T1_wall_ms"] = r, wall * 1e3
+    log(f"  zero-shot RTF B=8 T=1 (mel bucket 1024, 8 voices): {r:.6f} "
+        f"(median wall {wall * 1e3:.2f} ms for {audio:.3f} s of audio)")
+
+    # 4. every new sampler at B=1 in float32 on the card vs the CPU, the
+    # same injected noise; then heun with 18 levels at B=8 in bf16
+    short = tokens[:24]
+    t_mel_s = pick_bucket(len(short) * 10, DEFAULT_MEL_BUCKETS)
+    shape = (1, t_mel_s, cfg.stft.n_mel_channels)
+    g = torch.Generator().manual_seed(6)
+    x_T = torch.randn(shape, generator=g) * synth1.sched.sigma_max
+    noise = [torch.randn(shape, generator=g) for _ in range(8)]
+    for sampler, T, steps in (("our_multistep", 2, 2), ("euler", 1, 4),
+                              ("heun", 1, 4), ("dpm", 1, 4),
+                              ("ancestral", 1, 4)):
+        kw = dict(T=T, sampler=sampler, sample_steps=steps,
+                  compute_dtype=torch.float32)
+        res = []
+        for m, device in ((model, None), (cpu_model, "cpu")):
+            s_ = Synthesizer(cfg, m, None, device=device, **kw)
+            res.append(s_([short], spker_embeds=emb[None], x_T=x_T,
+                          noise=noise, mel_bucket=t_mel_s)[:2])
+        if not (res[0][1] == res[1][1]).all():
+            raise AssertionError(f"{sampler}: mel_lens {res[0][1]} != CPU "
+                                 f"{res[1][1]}")
+        err = check(f"{sampler} (steps {steps}) f32 card vs CPU",
+                    torch.from_numpy(res[0][0]), torch.from_numpy(res[1][0]),
+                    dict(rtol=0, atol=1e-3))
+        out[f"err_{sampler}"] = err
+        log(f"  {sampler:13s} T={T} steps={steps}: max|err| card vs CPU "
+            f"{err:.3e}")
+    heun = Synthesizer(cfg, model, vocoder, sampler="heun", sample_steps=18)
+    r, wall, audio = timed_rtf(heun, batch, counters, hop, sr, reps=3,
+                               spker_embeds=voices, mel_bucket=1024)
+    out["B8_heun18_rtf"], out["B8_heun18_wall_ms"] = r, wall * 1e3
+    log(f"  heun, 18 levels (35 denoiser passes), B=8 bf16: RTF {r:.6f} "
+        f"(median wall {wall * 1e3:.2f} ms)")
+
+    # 5. long-form synthesis over three chunks, then the zero-shot CLI
+    chunks = [tokens[:30], tokens[30:55], tokens[55:]]
+    before = [fn.launches for fn in counters]
+    wav_l, mels_l, lens_l = synthesize_long(synth1, chunks, spker_embed=emb,
+                                            gap_ms=150.0)
+    if [fn.launches - b for fn, b in zip(counters, before)] != [3, 1]:
+        raise AssertionError("synthesize_long: not one batched call")
+    gap = int(sr * 0.15)
+    if (len(mels_l) != 3 or not np.isfinite(wav_l).all()
+            or len(wav_l) != int(lens_l.sum()) * hop + 2 * gap):
+        raise AssertionError(f"synthesize_long: {len(mels_l)} chunks, "
+                             f"{len(wav_l)} samples, lens {lens_l}")
+    log(f"  synthesize_long: 3 chunks, mel_lens "
+        f"{lens_l.tolist()}, {len(wav_l) / sr:.3f} s spliced")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel never ran on the zero-shot path: "
+                             f"{launches}")
+    log(f"# zero-shot path launches: {launches}")
+
+    from cmtts_tpu_torch.audio.wavio import read_wav, write_wav
+
+    work = os.path.join(root, "build", "chip_smoke_zeroshot")
+    os.makedirs(work, exist_ok=True)
+    write_wav(os.path.join(work, "ref.wav"), wav_ref, sr)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "cmtts_tpu_torch.cli.synthesize_zeroshot",
+         "--ref_wav", os.path.join(work, "ref.wav"), "--text", TEXT,
+         "--out_dir", work], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    if cli.returncode != 0:
+        raise AssertionError(f"zero-shot CLI failed:\n{cli.stderr[-3000:]}")
+    mel_cli = np.load(os.path.join(work, "zeroshot_single-mel.npy"))
+    wav_cli, _ = read_wav(os.path.join(work, "zeroshot_single.wav"))
+    if (mel_cli.shape[1] != cfg.stft.n_mel_channels
+            or not np.isfinite(mel_cli).all()
+            or len(wav_cli) != len(mel_cli) * hop):
+        raise AssertionError(f"zero-shot CLI output: mel {mel_cli.shape}, "
+                             f"wav {len(wav_cli)}")
+    log(f"  zero-shot CLI (--ref_wav, DeepSpeaker, Griffin-Lim) on the card: "
+        f"{len(mel_cli)} frames, {len(wav_cli)} samples, "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -307,17 +583,7 @@ def main() -> int:
     log("# phase 3: synthesis (LJSpeech config, random weights, bf16)")
 
     def counted_call(synth, seqs, **kw):
-        before = [fn.launches for fn in counters]
-        mel, lens, wav = synth(seqs, **kw)
-        rose = [fn.launches - b for fn, b in zip(counters, before)]
-        if rose != [3, 1]:
-            raise AssertionError(f"kernel launches per call {rose} != [3, 1]")
-        t_mel = mel.shape[1]
-        if wav.shape != (len(seqs), t_mel * hop) or not (
-                torch.from_numpy(wav).isfinite().all()
-                and torch.from_numpy(mel).isfinite().all()):
-            raise AssertionError(f"bad output: wav {wav.shape} mel {mel.shape}")
-        return mel, lens, wav
+        return counted_synthesis(synth, seqs, counters, hop, **kw)
 
     # B=1 from text, T=1
     synth1 = Synthesizer(cfg, model, vocoder, T=1)
@@ -346,17 +612,7 @@ def main() -> int:
         f"wav vs plain vocoder {err_voc:.3e}")
 
     def rtf(synth, seqs, reps=5, **kw):
-        counted_call(synth, seqs, **kw)            # warm-up
-        times, audio = [], None
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, lens_, _ = counted_call(synth, seqs, **kw)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            audio = float(lens_.sum()) * hop / sr
-        wall = statistics.median(times)
-        return wall / audio, wall, audio
+        return timed_rtf(synth, seqs, counters, hop, sr, reps, **kw)
 
     results, walls = {}, {}
     r, wall, audio = rtf(synth1, [tokens])
@@ -395,6 +651,11 @@ def main() -> int:
     log(f"  vocoder alone, B=8 mel 1024: median {voc_ms:.2f} ms "
         f"({voc_ms / walls['B8_T1']:.1%} of the B=8 T=1 wall)")
 
+    # -- phase 5: zero-shot and samplers at full VCTK width ----------------
+    zero_shot = zero_shot_phase(counters, vocoder,
+                                os.path.dirname(os.path.abspath(__file__)))
+    results["zero_shot"] = zero_shot
+
     # -- phase 4: summary lines --------------------------------------------
     src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
@@ -406,7 +667,10 @@ def main() -> int:
         ms = sum(r_["ms"] for r_ in rows)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + zero_shot["launches"][name],
+            "launches_by_phase": {"3": launches[name],
+                                  "5": zero_shot["launches"][name]},
             "design": "mma.sync bf16", "float32_design": "simt f32",
             "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
             "hmma_in_sass": hmma,

@@ -1,16 +1,23 @@
-"""Single-utterance synthesis with the PyTorch port (counterpart of
-``cli/synthesize.py --mode single``).
+"""Synthesis with the PyTorch port (counterpart of ``cli/synthesize.py``,
+single and long modes).
 
     python -m cmtts_tpu_torch.cli.synthesize --mode single \\
         --text "Hello world" --T 1 --dataset LJSpeech \\
         [--params cm.npz] [--vocoder_ckpt hifigan.npz] [--device cuda]
+    python -m cmtts_tpu_torch.cli.synthesize --mode long --text "..." \\
+        [--gap_ms 150] [--speaker_id 0] [--sampler heun --sample_steps 18] \\
+        [--vocoder hifigan|griffinlim|none]
 
 ``--params`` takes a flat ``a/b/c`` npz of flax CM params and
 ``--vocoder_ckpt`` a HiFi-GAN npz; without them the CLI warns and uses
 random weights (with the duration head biased to ~6 frames per phoneme so
-that the output has a realistic length).  Writes ``single.wav`` and
-``single-mel.npy`` under ``--out_dir``.  Batch mode needs the dataset
-module, which is not ported yet.
+that the output has a realistic length).  Single mode writes
+``single.wav`` and ``single-mel.npy`` under ``--out_dir``; long mode splits
+the text into sentences, packs them into chunks that fit the model's frame
+budget, synthesises all chunks as one batch and writes the spliced
+``long.wav`` and one ``long-chunkNN-mel.npy`` a chunk.  ``--vocoder
+griffinlim`` inverts the mel without a neural vocoder, ``none`` writes mels
+only.  Batch mode needs the dataset module, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import warnings
 from string import punctuation
 
 import numpy as np
+
+from cmtts_tpu_torch.cm.sampling import SAMPLERS
 
 
 def read_lexicon(lex_path: str) -> dict:
@@ -86,70 +95,167 @@ def random_cmtts(cfg, seed: int = 0):
     return model
 
 
-def main(argv=None):
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--mode", type=str, choices=["single"],
-                        required=True)
+def load_cmtts(cfg, params_path: str | None):
+    """CMTTS from a flat npz of flax params, else random (with a warning)."""
+    from cmtts_tpu_torch.convert import load_flax_params
+    from cmtts_tpu_torch.models.cmtts import CMTTS
+    from cmtts_tpu_torch.models.hifigan import unflatten_npz
+
+    if params_path:
+        return load_flax_params(CMTTS(cfg), unflatten_npz(params_path))
+    warnings.warn("no --params given; using a random-init CMTTS")
+    return random_cmtts(cfg)
+
+
+def load_vocoder(cfg, vocoder: str | None, ckpt: str | None, device):
+    """(HiFi-GAN generator or None, Griffin-Lim inverter or None) for
+    ``--vocoder``: None means HiFi-GAN, random (with a warning) without a
+    checkpoint; an explicit ``hifigan`` requires one."""
+    from cmtts_tpu_torch.convert import load_flax_params
+    from cmtts_tpu_torch.models.hifigan import (
+        HiFiGANConfig,
+        HiFiGANGenerator,
+        unflatten_npz,
+    )
+
+    if vocoder == "hifigan" and ckpt is None:
+        raise SystemExit("--vocoder hifigan requires --vocoder_ckpt (no "
+                         "checkpoint means random-init output); use "
+                         "--vocoder griffinlim instead")
+    if vocoder == "none":
+        return None, None
+    if vocoder == "griffinlim":
+        from cmtts_tpu_torch.audio.stft import GriffinLim, MelSpectrogram
+
+        st = cfg.stft
+        return None, GriffinLim(MelSpectrogram(
+            st.sampling_rate, st.filter_length, st.hop_length, st.win_length,
+            st.n_mel_channels, st.mel_fmin, st.mel_fmax, device=device))
+    if ckpt:
+        voc_tree = unflatten_npz(ckpt)
+        width = int(voc_tree["conv_pre"]["kernel"].shape[-1])
+    else:
+        warnings.warn("no --vocoder_ckpt given; using a random-init HiFi-GAN")
+        voc_tree, width = None, 512
+    gen = HiFiGANGenerator(HiFiGANConfig(
+        num_mels=cfg.stft.n_mel_channels,
+        sampling_rate=cfg.stft.sampling_rate,
+        upsample_initial_channel=width))
+    if voc_tree is not None:
+        load_flax_params(gen, voc_tree)
+    return gen, None
+
+
+def write_outputs(out_dir: str, names, mel, mel_lens, wav, synth, griffin):
+    """``<name>-mel.npy`` for every utterance and ``<name>.wav`` when there
+    is a waveform (the vocoder's, or Griffin-Lim's from the trimmed mel)."""
+    from cmtts_tpu_torch.audio.wavio import write_wav
+
+    os.makedirs(out_dir, exist_ok=True)
+    sr = synth.cfg.stft.sampling_rate
+    mels = [mel[i, : int(n)] for i, n in enumerate(mel_lens)]
+    wavs = (synth.trim_wavs(wav, mel_lens) if wav is not None
+            else [griffin(m) for m in mels] if griffin is not None else None)
+    for i, name in enumerate(names):
+        np.save(os.path.join(out_dir, f"{name}-mel.npy"), mels[i])
+        if wavs is not None:
+            write_wav(os.path.join(out_dir, f"{name}.wav"), wavs[i], sr)
+    print(f"synthesized {len(names)} -> {out_dir}")
+
+
+def add_common_args(parser):
+    """The flags both synthesis CLIs share."""
     parser.add_argument("--text", type=str, required=True)
-    parser.add_argument("--dataset", type=str, default="LJSpeech")
     parser.add_argument("--config_root", type=str, default=None)
     parser.add_argument("--T", type=int, default=1, choices=[1, 2, 4])
     parser.add_argument("--params", type=str, default=None,
                         help="flat a/b/c npz of flax CM params")
     parser.add_argument("--vocoder_ckpt", type=str, default=None,
                         help="flat a/b/c npz of flax HiFi-GAN params")
+    parser.add_argument("--vocoder", type=str, default=None,
+                        choices=["hifigan", "griffinlim", "none"])
     parser.add_argument("--pitch_control", type=float, default=1.0)
     parser.add_argument("--energy_control", type=float, default=1.0)
     parser.add_argument("--duration_control", type=float, default=1.0)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--device", type=str, default="cuda")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--mode", type=str, choices=["single", "long"],
+                        required=True)
+    parser.add_argument("--dataset", type=str, default="LJSpeech")
+    add_common_args(parser)
+    parser.add_argument("--gap_ms", type=float, default=150.0,
+                        help="long mode: silence between chunks")
+    parser.add_argument("--speaker_id", type=int, default=0)
+    parser.add_argument("--sampler", type=str, default=None,
+                        choices=list(SAMPLERS),
+                        help="override the T-derived sampler")
+    parser.add_argument("--sample_steps", type=int, default=2,
+                        help="sigma-grid size of the ODE samplers "
+                             "(euler, heun, dpm, ancestral)")
     parser.add_argument("--out_dir", type=str, default="output/result_torch")
     args = parser.parse_args(argv)
 
-    from cmtts_tpu_torch.audio.wavio import write_wav
-    from cmtts_tpu_torch.convert import load_flax_params
     from cmtts_tpu_torch.core.config import load_configs
     from cmtts_tpu_torch.core.device import resolve_device
-    from cmtts_tpu_torch.models.cmtts import CMTTS
-    from cmtts_tpu_torch.models.hifigan import (
-        HiFiGANConfig,
-        HiFiGANGenerator,
-        unflatten_npz,
-    )
     from cmtts_tpu_torch.pipeline import Synthesizer
 
     device = resolve_device(args.device)
     cfg = load_configs(args.dataset, args.config_root)
-    if args.params:
-        model = load_flax_params(CMTTS(cfg), unflatten_npz(args.params))
-    else:
-        warnings.warn("no --params given; using a random-init CMTTS")
-        model = random_cmtts(cfg)
-    if args.vocoder_ckpt:
-        voc_tree = unflatten_npz(args.vocoder_ckpt)
-        width = int(voc_tree["conv_pre"]["kernel"].shape[-1])
-    else:
-        warnings.warn("no --vocoder_ckpt given; using a random-init HiFi-GAN")
-        voc_tree, width = None, 512
-    vocoder = HiFiGANGenerator(HiFiGANConfig(
-        num_mels=cfg.stft.n_mel_channels,
-        sampling_rate=cfg.stft.sampling_rate,
-        upsample_initial_channel=width))
-    if voc_tree is not None:
-        load_flax_params(vocoder, voc_tree)
+    model = load_cmtts(cfg, args.params)
+    vocoder, griffin = load_vocoder(cfg, args.vocoder, args.vocoder_ckpt,
+                                    device)
+    synth = Synthesizer(cfg, model, vocoder, T=args.T, sampler=args.sampler,
+                        sample_steps=args.sample_steps, device=device)
+    controls = dict(d_control=args.duration_control,
+                    p_control=args.pitch_control,
+                    e_control=args.energy_control)
 
-    synth = Synthesizer(cfg, model, vocoder, T=args.T, device=device)
-    tokens = preprocess_english(args.text, cfg.data.lexicon_path,
-                                list(cfg.data.text_cleaners))
-    mel, mel_lens, wav = synth(
-        [tokens], seed=args.seed, d_control=args.duration_control,
-        p_control=args.pitch_control, e_control=args.energy_control)
+    def tokenize(text: str) -> np.ndarray:
+        return preprocess_english(text, cfg.data.lexicon_path,
+                                  list(cfg.data.text_cleaners))
+
+    if args.mode == "single":
+        mel, mel_lens, wav = synth(
+            [tokenize(args.text)], speakers=np.asarray([args.speaker_id]),
+            seed=args.seed, **controls)
+        write_outputs(args.out_dir, ["single"], mel, mel_lens, wav, synth,
+                      griffin)
+        return
+
+    # long: sentences -> chunks that fit the frame budget -> one batched
+    # call -> the chunks' waveforms spliced with gap_ms of silence
+    from cmtts_tpu_torch.audio.wavio import write_wav
+    from cmtts_tpu_torch.pipeline import synthesize_long
+    from cmtts_tpu_torch.text import text_to_sequence
+    from cmtts_tpu_torch.text.segment import chunk_text
+
+    budget = max(8, int(cfg.model.max_seq_len
+                        / (10 * max(args.duration_control, 1e-3))))
+    sp_id = text_to_sequence("{sp}", [])[0]
+    chunks = chunk_text(args.text, tokenize, budget, sep_token=sp_id)
+    if not chunks:
+        raise SystemExit("text produced no phonemes")
+    print(f"long mode: {len(chunks)} chunk(s), budget {budget} tokens/chunk")
+    wav, mels, _ = synthesize_long(synth, chunks, speaker=args.speaker_id,
+                                   gap_ms=args.gap_ms, seed=args.seed,
+                                   **controls)
+    sr = cfg.stft.sampling_rate
+    if wav is None and griffin is not None:
+        gap = np.zeros(int(sr * args.gap_ms / 1000.0), np.float32)
+        pieces = []
+        for i, m in enumerate(mels):
+            pieces += [griffin(m)] + ([gap] if i < len(mels) - 1 else [])
+        wav = np.concatenate(pieces)
     os.makedirs(args.out_dir, exist_ok=True)
-    write_wav(os.path.join(args.out_dir, "single.wav"),
-              synth.trim_wavs(wav, mel_lens)[0], cfg.stft.sampling_rate)
-    np.save(os.path.join(args.out_dir, "single-mel.npy"),
-            mel[0, : int(mel_lens[0])])
-    print(f"synthesized 1 -> {args.out_dir}")
+    if wav is not None:
+        write_wav(os.path.join(args.out_dir, "long.wav"), wav, sr)
+        print(f"long.wav: {len(wav) / sr:.1f}s -> {args.out_dir}")
+    for i, m in enumerate(mels):
+        np.save(os.path.join(args.out_dir, f"long-chunk{i:02d}-mel.npy"), m)
 
 
 if __name__ == "__main__":

@@ -33,18 +33,23 @@ def diffusion_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class ResidualBlock(nn.Module):
-    def __init__(self, channels: int, cond_dim: int):
+    def __init__(self, channels: int, cond_dim: int, multi_speaker: bool):
         super().__init__()
         C = channels
         self.t_proj = nn.Linear(C, C, bias=False)
         self.cond_proj = nn.Linear(cond_dim, C)
+        self.spk_proj = (nn.Linear(cond_dim, C, bias=False) if multi_speaker
+                         else None)
         self.conv_gate = nn.Conv1d(C, C, 3, padding=1)
         self.conv_filt = nn.Conv1d(C, C, 3, padding=1)
         self.out_proj = nn.Linear(C, 2 * C)
 
-    def forward(self, x, t_emb, cond):
+    def forward(self, x, t_emb, cond, spk):
         residual = y = x + self.t_proj(t_emb)[:, None, :]
-        y = (y + self.cond_proj(cond)).transpose(1, 2)
+        y = y + self.cond_proj(cond)
+        if self.spk_proj is not None:
+            y = y + self.spk_proj(spk)[:, None, :]
+        y = y.transpose(1, 2)
         y = (torch.sigmoid(self.conv_gate(y))
              * torch.tanh(self.conv_filt(y))).transpose(1, 2)
         res_out, skip = self.out_proj(y).chunk(2, dim=-1)
@@ -52,9 +57,11 @@ class ResidualBlock(nn.Module):
 
 
 class Denoiser(nn.Module):
-    """x_t (B, L, n_mels) + rescaled t (B,) + cond (B, L, H) -> output."""
+    """x_t (B, L, n_mels) + rescaled t (B,) + cond (B, L, H) [+ speaker
+    embedding (B, H) for a multi-speaker model] -> output."""
 
-    def __init__(self, cfg: DenoiserConfig, n_mels: int, cond_dim: int):
+    def __init__(self, cfg: DenoiserConfig, n_mels: int, cond_dim: int,
+                 multi_speaker: bool = False):
         super().__init__()
         C = cfg.residual_channels
         self.channels = C
@@ -62,19 +69,21 @@ class Denoiser(nn.Module):
         self.mlp_in = nn.Linear(C, 4 * C, bias=False)
         self.mlp_out = nn.Linear(4 * C, C, bias=False)
         self.blocks = nn.ModuleList(
-            [ResidualBlock(C, cond_dim) for _ in range(cfg.residual_layers)])
+            [ResidualBlock(C, cond_dim, multi_speaker)
+             for _ in range(cfg.residual_layers)])
         self.skip_proj = nn.Linear(C, C)
         self.out_proj = nn.Linear(C, n_mels)
 
-    def forward(self, x, rescaled_t, cond):
+    def forward(self, x, rescaled_t, cond, speaker_emb=None):
         dt = x.dtype
         cond = cond.to(dt)
+        spk = None if speaker_emb is None else speaker_emb.to(dt)
         h = torch.relu(self.in_proj(x))
         t = diffusion_embedding(rescaled_t, self.channels).to(dt)
         t = self.mlp_out(mish(self.mlp_in(t)))
         skips = []
         for block in self.blocks:
-            h, skip = block(h, t, cond)
+            h, skip = block(h, t, cond, spk)
             skips.append(skip)
         h = torch.stack(skips).sum(0) / math.sqrt(len(self.blocks))
         return self.out_proj(torch.relu(self.skip_proj(h)))

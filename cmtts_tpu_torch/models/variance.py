@@ -1,9 +1,7 @@
 """Variance adaptor, inference path (port of
-``cmtts_tpu/models/variance.py``): duration, phoneme-level energy, the
-static-shape ``mel2ph`` length regulator and the CWT pitch branch with uv.
-
-Pitch types ``frame`` and ``ph`` and frame-level energy are not ported yet
-and raise ``NotImplementedError``.
+``cmtts_tpu/models/variance.py``): speaker add, duration, phoneme- or
+frame-level energy, the static-shape ``mel2ph`` length regulator and the
+pitch branch (CWT with uv, frame-level f0 with uv, or phoneme-level f0).
 """
 
 from __future__ import annotations
@@ -108,33 +106,35 @@ class VariancePredictor(nn.Module):
 
 
 class VarianceAdaptor(nn.Module):
-    """Duration -> phoneme-level energy -> length regulation -> CWT pitch."""
+    """Speaker add -> duration -> (phoneme-level energy) -> length
+    regulation -> pitch -> (frame-level energy)."""
 
     def __init__(self, tc: TransformerConfig, vp: VariancePredictorConfig,
                  ve: VarianceEmbeddingConfig, pitch_cfg: PitchConfig,
                  energy_cfg: EnergyConfig):
         super().__init__()
-        if ve.use_pitch_embed and pitch_cfg.pitch_type != "cwt":
-            raise NotImplementedError(
-                f"pitch_type {pitch_cfg.pitch_type!r} is not ported yet")
-        if ve.use_energy_embed and energy_cfg.feature != "phoneme_level":
-            raise NotImplementedError(
-                f"energy feature {energy_cfg.feature!r} is not ported yet")
         H = tc.encoder_hidden
         self.vp = vp
         self.ve = ve
         self.pitch_cfg = pitch_cfg
+        self.energy_feature = energy_cfg.feature
         self.duration_predictor = DurationPredictor(H, vp)
         if ve.use_pitch_embed:
-            cwt_out = 10 + (1 if pitch_cfg.use_uv else 0)
-            hc = vp.cwt_hidden_size
-            self.cwt_in = nn.Linear(H, hc)
-            self.cwt_predictor = VariancePredictor(hc, vp, cwt_out)
-            self.cwt_stats = nn.Sequential(OrderedDict([
-                ("layers_0", nn.Linear(H, hc)), ("layers_1", nn.ReLU()),
-                ("layers_2", nn.Linear(hc, hc)), ("layers_3", nn.ReLU()),
-                ("layers_4", nn.Linear(hc, 2)),
-            ]))
+            if pitch_cfg.pitch_type == "cwt":
+                cwt_out = 10 + (1 if pitch_cfg.use_uv else 0)
+                hc = vp.cwt_hidden_size
+                self.cwt_in = nn.Linear(H, hc)
+                self.cwt_predictor = VariancePredictor(hc, vp, cwt_out)
+                self.cwt_stats = nn.Sequential(OrderedDict([
+                    ("layers_0", nn.Linear(H, hc)), ("layers_1", nn.ReLU()),
+                    ("layers_2", nn.Linear(hc, hc)), ("layers_3", nn.ReLU()),
+                    ("layers_4", nn.Linear(hc, 2)),
+                ]))
+            else:
+                # "frame" predicts f0 and uv per mel frame, "ph" one f0 per
+                # phoneme, gathered to frames through mel2ph
+                odim = 2 if pitch_cfg.pitch_type == "frame" else 1
+                self.pitch_predictor = VariancePredictor(H, vp, odim)
             self.pitch_embed = nn.Embedding(ve.pitch_n_bins, H)
         if ve.use_energy_embed:
             self.energy_predictor = VariancePredictor(H, vp, 1)
@@ -153,8 +153,8 @@ class VarianceAdaptor(nn.Module):
             self.energy_embed = nn.Embedding(ve.energy_n_bins, H)
 
     def _energy(self, x, control: float):
-        """Phoneme-level energy: no padding mask (reference semantics);
-        bucketed with searchsorted(side='left')."""
+        """Energy at x's level (phonemes or frames): no padding mask
+        (reference semantics); bucketed with searchsorted(side='left')."""
         pad = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
         pred = self.energy_predictor(x, pad)[..., 0]
         idx = torch.searchsorted(self.energy_bins, (pred * control).contiguous())
@@ -179,14 +179,45 @@ class VarianceAdaptor(nn.Module):
                 "f0_mean": f0_mean, "f0_std": f0_std}
         return pred, self.pitch_embed(f0_to_coarse(f0_denorm))
 
-    def forward(self, x, src_pad_mask, t_mel: int, p_control: float = 1.0,
-                e_control: float = 1.0, d_control: float = 1.0) -> dict:
+    def _pitch_ph(self, encoder_out, mel2ph, control: float):
+        """Phoneme-level f0 on the pre-regulation states; the coarse ids
+        are gathered to frames through mel2ph (0 = padding row)."""
+        pc = self.pitch_cfg
+        pad = torch.zeros(encoder_out.shape[:2], dtype=torch.bool,
+                          device=encoder_out.device)
+        pitch_pred = self.pitch_predictor(encoder_out, pad) * control
+        f0_denorm = denorm_f0(pitch_pred[..., 0], None, pc.pitch_norm,
+                              pc.f0_mean, pc.f0_std, use_uv=False)
+        coarse = f0_to_coarse(f0_denorm)
+        padded = torch.cat([torch.zeros_like(coarse[:, :1]), coarse], dim=1)
+        pred = {"pitch_pred": pitch_pred, "f0_denorm": f0_denorm}
+        return pred, self.pitch_embed(torch.gather(padded, 1, mel2ph))
+
+    def _pitch_frame(self, x_mel, mel2ph, control: float):
+        """Frame-level f0 (and uv); frames past the utterance get f0 = 0."""
+        pc = self.pitch_cfg
+        pad = torch.zeros(x_mel.shape[:2], dtype=torch.bool,
+                          device=x_mel.device)
+        pitch_pred = self.pitch_predictor(x_mel, pad) * control
+        uv = (pitch_pred[..., 1] > 0) if pc.use_uv else None
+        f0_denorm = denorm_f0(pitch_pred[..., 0], uv, pc.pitch_norm,
+                              pc.f0_mean, pc.f0_std, pc.use_uv,
+                              pitch_padding=mel2ph == 0)
+        pred = {"pitch_pred": pitch_pred, "f0_denorm": f0_denorm}
+        return pred, self.pitch_embed(f0_to_coarse(f0_denorm))
+
+    def forward(self, x, src_pad_mask, t_mel: int, speaker_emb=None,
+                p_control: float = 1.0, e_control: float = 1.0,
+                d_control: float = 1.0) -> dict:
+        if speaker_emb is not None:
+            x = x + speaker_emb[:, None, :]
         log_d_pred = self.duration_predictor(x, src_pad_mask)
         e_pred = None
-        if self.ve.use_energy_embed:
+        use_energy = self.ve.use_energy_embed
+        if use_energy and self.energy_feature == "phoneme_level":
             e_pred, e_embed = self._energy(x, e_control)
             x = x + e_embed
-        encoder_out = x  # post energy, pre length-regulation
+        encoder_out = x  # post speaker and energy, pre length-regulation
 
         d_rounded = torch.clamp(
             torch.round(torch.exp(log_d_pred) - 1.0) * d_control, min=0)
@@ -198,9 +229,19 @@ class VarianceAdaptor(nn.Module):
         x_mel = gather_by_mel2ph(x, mel2ph)
         p_pred = None
         if self.ve.use_pitch_embed:
-            p_pred, p_embed = self._pitch_cwt(x_mel, encoder_out, mel2ph,
-                                              p_control)
+            pitch_type = self.pitch_cfg.pitch_type
+            if pitch_type == "cwt":
+                p_pred, p_embed = self._pitch_cwt(x_mel, encoder_out, mel2ph,
+                                                  p_control)
+            elif pitch_type == "ph":
+                p_pred, p_embed = self._pitch_ph(encoder_out, mel2ph,
+                                                 p_control)
+            else:
+                p_pred, p_embed = self._pitch_frame(x_mel, mel2ph, p_control)
             x_mel = x_mel + p_embed
+        if use_energy and self.energy_feature == "frame_level":
+            e_pred, e_embed = self._energy(x_mel, e_control)
+            x_mel = x_mel + e_embed
         return {
             "cond": x_mel,
             "log_d_pred": log_d_pred,

@@ -7,7 +7,8 @@ denoiser to bf16), and HiFi-GAN vocodes the padded mel through the port's
 MRF kernels.  Token batches are padded to the same text and mel buckets as
 the JAX pipeline: the padded inverse-CWT standardisation depends on them.
 Sampler math and outputs stay float32; public layouts are JAX's: mel
-(B, L, n_mels), wav (B, L * hop).
+(B, L, n_mels), wav (B, L * hop).  ``synthesize_long`` runs the chunks of a
+long text as one batch and splices their waveforms.
 """
 
 from __future__ import annotations
@@ -85,25 +86,30 @@ class Synthesizer:
 
     @torch.no_grad()
     def synthesize(self, texts: torch.Tensor, src_lens: torch.Tensor,
-                   t_mel: int, d_control: float = 1.0, p_control: float = 1.0,
+                   t_mel: int, speakers: torch.Tensor | None = None,
+                   spker_embeds: torch.Tensor | None = None,
+                   d_control: float = 1.0, p_control: float = 1.0,
                    e_control: float = 1.0, x_T: torch.Tensor | None = None,
                    noise: Sequence[torch.Tensor] | None = None,
                    generator: torch.Generator | None = None):
-        """Device-side core: padded ids (B, T_txt) and lengths on the device
-        -> (mel (B, t_mel, n_mels), mel_lens (B,), wav (B, t_mel * hop) or
-        None), all tensors on the device."""
+        """Device-side core: padded ids (B, T_txt), lengths and the
+        speakers (ids (B,) or embeddings (B, D), for a multi-speaker model)
+        on the device -> (mel (B, t_mel, n_mels), mel_lens (B,),
+        wav (B, t_mel * hop) or None), all tensors on the device."""
         sched = self.sched
         cdt = self.compute_dtype
         cond_out = self.model.condition(texts, src_lens, t_mel,
+                                        speakers=speakers,
+                                        spker_embeds=spker_embeds,
                                         p_control=p_control,
                                         e_control=e_control,
                                         d_control=d_control)
-        cond = cond_out["cond"]
+        cond, spk = cond_out["cond"], cond_out["speaker_emb"]
 
         def denoise(x_t, sigma):
             c_skip, c_out, c_in = sched.active_scalings(sigma)
             out = self.denoiser((c_in[:, None, None] * x_t).to(cdt),
-                                sched.rescale_t(sigma), cond).float()
+                                sched.rescale_t(sigma), cond, spk).float()
             return c_out[:, None, None] * out + c_skip[:, None, None] * x_t
 
         shape = (texts.shape[0], t_mel, self.cfg.stft.n_mel_channels)
@@ -118,7 +124,9 @@ class Synthesizer:
                                       cdt)
         return mel, cond_out["mel_lens"], wav
 
-    def __call__(self, token_seqs: Sequence[np.ndarray], seed: int = 42,
+    def __call__(self, token_seqs: Sequence[np.ndarray],
+                 speakers: np.ndarray | None = None,
+                 spker_embeds: np.ndarray | None = None, seed: int = 42,
                  d_control: float = 1.0, p_control: float = 1.0,
                  e_control: float = 1.0, mel_bucket: int | None = None,
                  x_T: torch.Tensor | None = None,
@@ -126,9 +134,12 @@ class Synthesizer:
         """Returns (mel (B, L, n_mels) np, mel_lens np, wav np or None).
 
         Sequences are padded to a text bucket; the mel bucket is given or
-        estimated as 10 frames per phoneme, clamped to max_seq_len.  The
-        noise is drawn from a generator seeded with ``seed`` unless ``x_T``
-        (scaled by sigma_max) and, for multistep, ``noise`` are given.
+        estimated as 10 frames per phoneme, clamped to max_seq_len.
+        ``speakers`` (ids) defaults to 0; ``spker_embeds`` (B, D) is
+        required by a model with an external speaker embedder and
+        defaults to zeros otherwise.  The noise is drawn from a generator
+        seeded with ``seed`` unless ``x_T`` (scaled by sigma_max) and the
+        sampler's later draws, ``noise``, are given.
         """
         B = len(token_seqs)
         max_txt = max(len(t) for t in token_seqs)
@@ -139,12 +150,24 @@ class Synthesizer:
         if mel_bucket is None:
             est = min(int(max_txt * 10), self.cfg.model.max_seq_len)
             mel_bucket = pick_bucket(est, self.mel_buckets)
+        mc = self.cfg.model
+        if speakers is None:
+            speakers = np.zeros(B, np.int64)
+        if spker_embeds is None:
+            if mc.multi_speaker and mc.speaker_embedder != "none":
+                raise ValueError(
+                    "spker_embeds required for external-embedder models")
+            spker_embeds = np.zeros((B, mc.external_speaker_dim), np.float32)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         if x_T is not None:
             x_T = x_T.to(self.device, torch.float32)
         mel, mel_lens, wav = self.synthesize(
             torch.from_numpy(texts).to(self.device),
             torch.from_numpy(src_lens).to(self.device), mel_bucket,
+            speakers=torch.as_tensor(np.asarray(speakers, np.int64),
+                                     device=self.device),
+            spker_embeds=torch.as_tensor(
+                np.asarray(spker_embeds, np.float32), device=self.device),
             d_control=d_control, p_control=p_control, e_control=e_control,
             x_T=x_T, noise=noise, generator=generator)
         mel_lens = mel_lens.cpu().numpy()
@@ -156,3 +179,44 @@ class Synthesizer:
         """Per-sample waveform trim to mel_len * hop."""
         hop = self.cfg.stft.hop_length
         return [w[: int(n) * hop] for w, n in zip(wav, mel_lens)]
+
+
+def synthesize_long(synth: Synthesizer, token_chunks, speaker: int = 0,
+                    spker_embed: np.ndarray | None = None,
+                    gap_ms: float = 150.0, seed: int = 42,
+                    d_control: float = 1.0, p_control: float = 1.0,
+                    e_control: float = 1.0, pad_pow2: bool = False):
+    """Long-form synthesis: run all pre-packed chunks (see
+    ``cmtts_tpu_torch.text.segment.chunk_text``) as ONE batched call, then
+    splice the trimmed per-chunk waveforms with ``gap_ms`` of silence.
+
+    ``pad_pow2`` pads the batch to the next power of two by repeating the
+    last chunk (padding rows are discarded), so that a server sees a
+    bounded set of batch shapes.
+
+    Returns ``(wav, mels, mel_lens)``: the spliced waveform (or None for a
+    mel-only synthesizer) and the per-chunk trimmed mels.
+    """
+    if not token_chunks:
+        raise ValueError("no token chunks to synthesize")
+    B = len(token_chunks)
+    token_chunks = list(token_chunks)
+    if pad_pow2:
+        token_chunks += [token_chunks[-1]] * ((1 << (B - 1).bit_length()) - B)
+    n = len(token_chunks)
+    embeds = (None if spker_embed is None
+              else np.tile(np.asarray(spker_embed, np.float32)[None], (n, 1)))
+    mel, mel_lens, wav = synth(
+        token_chunks, speakers=np.full(n, speaker, np.int64),
+        spker_embeds=embeds, seed=seed, d_control=d_control,
+        p_control=p_control, e_control=e_control)
+    mel_lens = mel_lens[:B]
+    mels = [mel[i, : int(mel_lens[i])] for i in range(B)]
+    if wav is None:
+        return None, mels, mel_lens
+    gap = np.zeros(int(synth.cfg.stft.sampling_rate * gap_ms / 1000.0),
+                   np.float32)
+    pieces = []
+    for i, p in enumerate(synth.trim_wavs(wav, mel_lens)):
+        pieces += [np.asarray(p, np.float32)] + ([gap] if i < B - 1 else [])
+    return np.concatenate(pieces), mels, mel_lens

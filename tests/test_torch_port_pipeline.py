@@ -3,7 +3,6 @@ mel -> waveform on the same weights, with JAX's x_T and per-step noise
 recomputed here by the calls ``cmtts_tpu.cm.sampling`` makes and injected
 into the port; plus the port's import isolation and its CLI."""
 
-import json
 import os
 import subprocess
 import sys
@@ -13,28 +12,23 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import yaml
 
-from torch_port_helpers import both_configs, config_dicts, flax_cm_params, tokens, torch_cm
+from torch_port_helpers import (
+    both_configs,
+    config_dicts,
+    flax_cm_params,
+    jax_draws,
+    save_flat_npz,
+    tokens,
+    write_config,
+    torch_cm,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # float32 on both sides; the mel passes the cond net and the denoiser, the
 # wav also the vocoder: summation order only
 MEL_TOL = dict(rtol=2e-4, atol=2e-4)
 WAV_TOL = dict(rtol=2e-4, atol=2e-4)
-
-
-def jax_noise(seed, shape, sigma_max, n_steps):
-    """x_T and the multistep noise exactly as sample_mel and
-    stochastic_iterative draw them from PRNGKey(seed)."""
-    rng, sub = jax.random.split(jax.random.PRNGKey(seed))
-    x_T = jax.random.normal(sub, shape, jnp.float32) * sigma_max
-    noise = []
-    for _ in range(n_steps):
-        rng, sub = jax.random.split(rng)
-        noise.append(torch.from_numpy(np.array(
-            jax.random.normal(sub, shape, jnp.float32))))
-    return torch.from_numpy(np.array(x_T)), noise
 
 
 def tiny_vocoder(n_mels, width=64, seed=0):
@@ -70,7 +64,7 @@ def run_both(tiny, T, vocode, buckets, mel_bucket=None, seed=7, lengths=(14, 9))
                     mel_buckets=mel_b, compute_dtype=jnp.float32)
     ref = jsynth(seqs, seed=seed, mel_bucket=mel_bucket)
     t_mel = ref[0].shape[1]
-    x_T, noise = jax_noise(seed, (len(seqs), t_mel, n_mels),
+    x_T, noise = jax_draws(seed, (len(seqs), t_mel, n_mels),
                            jsynth.sched.sigma_max, T)
     tsynth = TSynth(tcfg, torch_cm(tcfg, params),
                     port_vocoder(voc, n_mels) if vocode else None, T=T,
@@ -111,8 +105,13 @@ import pkgutil, sys, importlib
 sys.modules["jax"] = None         # any "import jax" now fails
 sys.modules["cmtts_tpu"] = None
 import cmtts_tpu_torch
-for m in pkgutil.walk_packages(cmtts_tpu_torch.__path__, "cmtts_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(cmtts_tpu_torch.__path__,
+                                               "cmtts_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in ("audio.stft", "models.speaker", "text.segment",
+             "cli.synthesize_zeroshot"):
+    assert "cmtts_tpu_torch." + name in names, name
 import numpy as np, torch
 from cmtts_tpu_torch.core.config import config_from_dicts
 from cmtts_tpu_torch.models.cmtts import CMTTS
@@ -128,6 +127,21 @@ mel, lens, wav = Synthesizer(cfg, model, voc, T=2, text_buckets=(8,),
     [np.arange(13, 19)])
 assert mel.shape == (1, 32, 16) and wav.shape == (1, 32 * 256)
 assert np.isfinite(wav).all()
+pre, mdl, train, stats = config_dicts(speaker_embedder="DeepSpeaker")
+ms_cfg = config_from_dicts(pre, dict(mdl, external_speaker_dim=512), train,
+                           stats)
+from cmtts_tpu_torch.models.speaker import DeepSpeakerInference, DeepSpeakerResCNN
+from cmtts_tpu_torch.pipeline import synthesize_long
+wav_ref = np.sin(np.arange(22050) * 0.05).astype(np.float32)
+emb = DeepSpeakerInference(DeepSpeakerResCNN(), "cpu").predict_embedding(wav_ref)
+ms = Synthesizer(ms_cfg, CMTTS(ms_cfg), voc, sampler="heun", sample_steps=3,
+                 text_buckets=(8,), mel_buckets=(32,), device="cpu")
+wav, mels, lens = synthesize_long(ms, [np.arange(13, 19), np.arange(20, 24)],
+                                  spker_embed=emb)
+assert len(mels) == 2 and np.isfinite(wav).all()
+from cmtts_tpu_torch.audio.stft import GriffinLim, MelSpectrogram
+assert GriffinLim(MelSpectrogram(n_mel_channels=16, device="cpu"),
+                  n_iters=2)(mel[0]).shape == (32 * 256,)
 assert not torch.cuda.is_available()
 try:
     Synthesizer(cfg, model)
@@ -154,34 +168,16 @@ def test_port_imports_no_jax_and_needs_cuda_by_default():
 def test_cli_single_mode(tmp_path):
     """The port's CLI on the CPU with flat npz checkpoints (a tiny config
     written as YAML, a flax-initialised CM and a width-32 HiFi-GAN)."""
-    pre, model, train, stats = config_dicts()
-    cfg_dir = tmp_path / "config" / "Tiny"
-    cfg_dir.mkdir(parents=True)
-    pre["path"] = {"preprocessed_path": str(tmp_path / "pre"),
-                   "lexicon_path": str(tmp_path / "none.txt")}
-    os.makedirs(tmp_path / "pre")
-    with open(tmp_path / "pre" / "stats.json", "w") as f:
-        json.dump(stats, f)
-    for name, d in (("preprocess", pre), ("model", model), ("train", train)):
-        with open(cfg_dir / f"{name}.yaml", "w") as f:
-            yaml.safe_dump(d, f)
+    root = write_config(tmp_path, "Tiny", config_dicts())
     jcfg, _ = both_configs()
-
-    def flat(tree, prefix=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from flat(v, f"{prefix}{k}/")
-            else:
-                yield f"{prefix}{k}", v
-
-    np.savez(tmp_path / "cm.npz", **dict(flat(flax_cm_params(jcfg))))
-    np.savez(tmp_path / "voc.npz", **dict(flat(tiny_vocoder(16, width=32))))
+    save_flat_npz(tmp_path / "cm.npz", flax_cm_params(jcfg))
+    save_flat_npz(tmp_path / "voc.npz", tiny_vocoder(16, width=32))
     from cmtts_tpu_torch.cli.synthesize import main
 
     out_dir = tmp_path / "out"
     main(["--mode", "single", "--text", "Hello world.", "--dataset", "Tiny",
-          "--config_root", str(tmp_path / "config"), "--params",
-          str(tmp_path / "cm.npz"), "--vocoder_ckpt", str(tmp_path / "voc.npz"),
+          "--config_root", root, "--params", str(tmp_path / "cm.npz"),
+          "--vocoder_ckpt", str(tmp_path / "voc.npz"),
           "--device", "cpu", "--out_dir", str(out_dir)])
     mel = np.load(out_dir / "single-mel.npy")
     assert mel.ndim == 2 and mel.shape[1] == 16 and mel.shape[0] > 0
@@ -189,3 +185,72 @@ def test_cli_single_mode(tmp_path):
 
     wav, sr = read_wav(str(out_dir / "single.wav"))
     assert sr == 22050 and len(wav) == mel.shape[0] * 256
+
+
+def test_cli_long_mode(tmp_path, capsys):
+    """Long mode on the CPU: three sentences over a 12-token chunk budget
+    (max_seq_len 128), random weights, heun with 3 levels, Griffin-Lim."""
+    root = write_config(tmp_path, "Tiny", config_dicts())
+    from cmtts_tpu_torch.audio.wavio import read_wav
+    from cmtts_tpu_torch.cli.synthesize import main
+
+    out_dir = tmp_path / "out"
+    main(["--mode", "long", "--text", "Hello world. How are you today? "
+          "The quick brown fox jumps over the lazy dog.", "--dataset", "Tiny",
+          "--config_root", root, "--sampler", "heun", "--sample_steps", "3",
+          "--vocoder", "griffinlim", "--gap_ms", "100", "--device", "cpu",
+          "--out_dir", str(out_dir)])
+    n = int(capsys.readouterr().out.split("long mode: ")[1].split()[0])
+    mels = [np.load(out_dir / f"long-chunk{i:02d}-mel.npy") for i in range(n)]
+    assert n >= 3 and not (out_dir / f"long-chunk{n:02d}-mel.npy").exists()
+    assert all(m.shape[1] == 16 and m.shape[0] > 0 for m in mels)
+    wav, sr = read_wav(str(out_dir / "long.wav"))
+    assert len(wav) == sum(len(m) for m in mels) * 256 + (n - 1) * 2205
+    with pytest.raises(SystemExit, match="requires --vocoder_ckpt"):
+        main(["--mode", "long", "--text", "Hi.", "--dataset", "Tiny",
+              "--config_root", root, "--vocoder", "hifigan",
+              "--device", "cpu"])
+
+
+@pytest.fixture
+def zeroshot_config(tmp_path):
+    """A tiny GE2E-conditioned config (256-wide external embeddings)."""
+    dicts = config_dicts(speaker_embedder="GE2E")
+    dicts[1]["external_speaker_dim"] = 256
+    return write_config(tmp_path, "TinyZS", dicts)
+
+
+@pytest.mark.parametrize("source", ["spker_embed", "ref_wav"])
+def test_cli_zeroshot(tmp_path, zeroshot_config, source):
+    """Zero-shot CLI on the CPU from a precomputed embedding or from a 2 s
+    reference wav (random GE2E weights); Griffin-Lim without a vocoder
+    checkpoint."""
+    from cmtts_tpu_torch.audio.wavio import read_wav, write_wav
+    from cmtts_tpu_torch.cli.synthesize_zeroshot import main
+
+    rs = np.random.RandomState(0)
+    if source == "spker_embed":
+        np.save(tmp_path / "emb.npy", rs.randn(256).astype(np.float32))
+        src = ["--spker_embed", str(tmp_path / "emb.npy")]
+    else:
+        tt = np.arange(44100) / 22050
+        write_wav(str(tmp_path / "ref.wav"),
+                  0.3 * np.sin(2 * np.pi * 150 * tt) + 0.01 * rs.randn(44100),
+                  22050)
+        src = ["--ref_wav", str(tmp_path / "ref.wav")]
+    out_dir = tmp_path / "out"
+    base = ["--text", "Hello world.", "--dataset", "TinyZS", "--config_root",
+            zeroshot_config, "--device", "cpu", "--out_dir", str(out_dir)]
+    main(base + src)
+    mel = np.load(out_dir / "zeroshot_single-mel.npy")
+    assert mel.ndim == 2 and mel.shape[1] == 16 and mel.shape[0] > 0
+    wav, sr = read_wav(str(out_dir / "zeroshot_single.wav"))
+    assert sr == 22050 and len(wav) == mel.shape[0] * 256
+    if source == "spker_embed":
+        np.save(tmp_path / "bad.npy", np.zeros(8, np.float32))
+        with pytest.raises(SystemExit, match="external_speaker_dim 256"):
+            main(base + ["--spker_embed", str(tmp_path / "bad.npy")])
+        with pytest.raises(SystemExit, match="requires --vocoder_ckpt"):
+            main(base + src + ["--vocoder", "hifigan"])
+        with pytest.raises(SystemExit):   # both sources at once
+            main(base + src + ["--ref_wav", "x.wav"])

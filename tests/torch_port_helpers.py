@@ -10,16 +10,21 @@ E_MIN, E_MAX = -1.0, 2.0
 
 
 def config_dicts(tiny: bool = True, cwt_masked_std: bool = False,
-                 n_mels: int = 16):
+                 n_mels: int = 16, speaker_embedder: str | None = None,
+                 pitch_type: str = "cwt",
+                 energy_feature: str = "phoneme_level"):
     """(preprocess, model, train, stats) dicts in the reference YAML format.
-    ``tiny=False`` keeps the LJSpeech widths (config/LJSpeech)."""
+    ``tiny=False`` keeps the LJSpeech widths (config/LJSpeech).  A
+    ``speaker_embedder`` ("none", "DeepSpeaker" or "GE2E") makes the model
+    multi-speaker: 4 speakers in the table, or external embeddings of 8
+    (tiny) or 512 features."""
     preprocess = {
         "preprocessing": {
             "mel": {"n_mel_channels": n_mels if tiny else 80},
-            "pitch": {"pitch_type": "cwt", "use_uv": True,
+            "pitch": {"pitch_type": pitch_type, "use_uv": True,
                       "pitch_norm": "log", "pitch_norm_eps": 1e-9,
                       "cwt_masked_std": cwt_masked_std},
-            "energy": {"feature": "phoneme_level"},
+            "energy": {"feature": energy_feature},
         },
     }
     if tiny:
@@ -37,6 +42,11 @@ def config_dicts(tiny: bool = True, cwt_masked_std: bool = False,
                  "denoiser": {"residual_channels": 256,
                               "residual_layers": 20}}
     stats = {"energy": [E_MIN, E_MAX, 0.0, 1.0]}
+    if speaker_embedder is not None:
+        preprocess["preprocessing"]["speaker_embedder"] = speaker_embedder
+        model["multi_speaker"] = True
+        model["external_speaker_dim"] = 8 if tiny else 512
+        stats["n_speakers"] = 4
     return preprocess, model, {}, stats
 
 
@@ -64,7 +74,9 @@ def _flax_cm_params(jcfg, seed: int, dur_bias: float):
         {"params": rng, "dropout": rng},
         jnp.zeros((B, 32, jcfg.stft.n_mel_channels)), jnp.zeros(B),
         speakers=jnp.zeros(B, jnp.int32), texts=jnp.ones((B, t_txt), jnp.int32),
-        src_lens=jnp.full((B,), t_txt, jnp.int32), deterministic=True)
+        src_lens=jnp.full((B,), t_txt, jnp.int32),
+        spker_embeds=jnp.zeros((B, jcfg.model.external_speaker_dim)),
+        deterministic=True)
     params = jax.tree_util.tree_map(np.asarray, variables["params"])
     # random init leaves out_proj (zero-init head) at 0: give the denoiser
     # output some signal so that the parity of the whole stack is visible
@@ -84,6 +96,61 @@ def flax_cm_params(jcfg, seed: int = 0, dur_bias: float = float(np.log(7.0))):
 
     return jax.tree_util.tree_map(np.copy,
                                   _flax_cm_params(jcfg, seed, dur_bias))
+
+
+def jax_draws(seed, shape, sigma_max, n_draws):
+    """x_T and the next ``n_draws`` unit normals exactly as
+    ``cmtts_tpu.cm.sampling`` draws them from PRNGKey(seed): every draw
+    splits the key it was left, whichever sampler makes it."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    rng, sub = jax.random.split(jax.random.PRNGKey(seed))
+    x_T = jax.random.normal(sub, shape, jnp.float32) * sigma_max
+    noise = []
+    for _ in range(n_draws):
+        rng, sub = jax.random.split(rng)
+        noise.append(torch.from_numpy(np.array(
+            jax.random.normal(sub, shape, jnp.float32))))
+    return torch.from_numpy(np.array(x_T)), noise
+
+
+def flat_tree(tree, prefix=""):
+    """(``a/b/c`` key, leaf) pairs of a nested dict: the npz layout the
+    port's checkpoint arguments read."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_tree(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", np.asarray(v)
+
+
+def save_flat_npz(path, tree):
+    np.savez(path, **dict(flat_tree(tree)))
+
+
+def write_config(tmp_path, name, dicts):
+    """Write (preprocess, model, train, stats) dicts as the reference's
+    YAML config ``<tmp_path>/config/<name>`` with its stats.json; returns
+    the config root."""
+    import json
+    import os
+
+    import yaml
+
+    pre, model, train, stats = dicts
+    root = tmp_path / "config"
+    (root / name).mkdir(parents=True)
+    pre = dict(pre, path={"preprocessed_path": str(tmp_path / "pre"),
+                          "lexicon_path": str(tmp_path / "none.txt")})
+    os.makedirs(tmp_path / "pre", exist_ok=True)
+    with open(tmp_path / "pre" / "stats.json", "w") as f:
+        json.dump(stats, f)
+    for part, d in (("preprocess", pre), ("model", model), ("train", train)):
+        with open(root / name / f"{part}.yaml", "w") as f:
+            yaml.safe_dump(d, f)
+    return str(root)
 
 
 def torch_cm(tcfg, params):
