@@ -34,7 +34,19 @@ exits non-zero):
      heun with 18 levels at B=8 in bf16; ``synthesize_long`` over three
      chunks; the zero-shot CLI from a reference wav.  Launch counters are
      zeroed before its synthesis calls and must all rise again.
-  4. a ``{"kernels": [...]}`` line (launches of phases 3 and 5), the
+  6. consistency training at full LJSpeech width (random init from a
+     seed, a seeded feature corpus of 128 + 8 utterances written under
+     ``build/``): one f32 CT step at B=2 on the card against the same step
+     on the CPU (dropout zeroed, TF32 off); timed B=32 CT steps on the
+     corpus's bucketed batches in f32 and bf16 with the loss-second-moment
+     sampler (median ms, steps/s, peak memory, the denoiser's TFLOP/s, and
+     one step split into student forward, target forward, backward and
+     optimizer); one CD, progdist and EDM step each; then the CLIs:
+     train, auto-resume (the restored state must equal the saved one) and
+     synthesis from the trained checkpoint with HiFi-GAN on random weights,
+     whose MRF kernel launches are counted.  Its numbers go on a
+     ``{"train": {...}}`` line.
+  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5 and 6), the
      card's name and power limit, and a last line
      ``{"ok": true, "device": {...}}``.
 
@@ -461,6 +473,394 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
     return out
 
 
+# -- phase 6: consistency training ------------------------------------------
+
+TRAIN_F32_TOL = dict(rtol=2e-4, atol=2e-4)   # losses and grad norm, card vs CPU
+# params, target and EMAs after one step of lr 1e-4: updates are 1e-4 x the
+# gradient, so card and CPU agree to a rounding of the values
+TRAIN_PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+class Tee:
+    """A stdout that also keeps what it prints."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def write_training_config(work: str) -> str:
+    """A config root over the LJSpeech YAMLs with the corpus, checkpoints
+    and logs under ``work``, saves every 2 steps and a log every 2."""
+    import yaml
+
+    from cmtts_tpu_torch.core.config import load_yaml_configs
+
+    pre, model, train = load_yaml_configs("LJSpeech")
+    pre["path"]["preprocessed_path"] = os.path.join(work, "pre")
+    train["path"] = {k: os.path.join(work, k.split("_")[0])
+                     for k in ("ckpt_path", "log_path", "result_path")}
+    train["step"].update(save_step=2, log_step=2)
+    root = os.path.join(work, "config")
+    os.makedirs(os.path.join(root, "LJSpeech"), exist_ok=True)
+    for name, d in (("preprocess", pre), ("model", model), ("train", train)):
+        with open(os.path.join(root, "LJSpeech", f"{name}.yaml"), "w") as f:
+            yaml.safe_dump(d, f)
+    return root
+
+
+def denoiser_flop(cfg, B: int, L: int) -> int:
+    """FLOP of one denoiser forward at B x L frames, from the module's
+    layers: per frame in_proj, per block cond_proj, the k3 gate and filter
+    convs and out_proj, then skip_proj and out_proj; per row the step MLP
+    and each block's t_proj."""
+    C = cfg.model.denoiser.residual_channels
+    N = cfg.model.denoiser.residual_layers
+    H = cfg.model.transformer.encoder_hidden
+    M = cfg.stft.n_mel_channels
+    frame = 2 * M * C + N * (2 * H * C + 2 * 2 * 3 * C * C + 2 * C * 2 * C) \
+        + 2 * C * C + 2 * C * M
+    row = 2 * C * 4 * C * 2 + N * 2 * C * C
+    return B * L * frame + B * row
+
+
+def instrumented_step(model, cfg, opt, state, batch, probs, gen, cdt):
+    """One CT step composed of the train step's own pieces with CUDA events
+    between them: (ms by part, loss, indices, noise, the generator's state
+    before the dropout draws), so that the caller can check the loss
+    against the train step's on the same draws."""
+    import torch
+
+    from cmtts_tpu_torch.cm.karras import append_dims, schedule_from_config
+    from cmtts_tpu_torch.cm.losses import make_denoise_fn, variance_loss
+    from cmtts_tpu_torch.text import sil_phonemes_ids
+    from cmtts_tpu_torch.train.loop import make_apply_fn
+    from cmtts_tpu_torch.train.state import tree_ema
+
+    sched = schedule_from_config(cfg)
+    denoise = make_denoise_fn(make_apply_fn(model, cdt), sched)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    x0 = batch["mels"]
+    probs = torch.as_tensor(probs, device=x0.device)
+    idx = torch.multinomial(probs, x0.shape[0], replacement=True,
+                            generator=gen)
+    w = 1.0 / (probs.shape[0] * probs[idx])
+    noise = torch.randn(x0.shape, generator=gen, device=x0.device)
+    t, t2 = sched.t_of_index(idx, 3), sched.t_of_index(idx + 1, 3)
+    x_t = x0 + noise * append_dims(t, 3)
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in state.params.items()}
+    gstate = gen.get_state()
+    ev[0].record()
+    student, cond = denoise(params, x_t, t, batch, gen, False)
+    tts, _ = variance_loss(cond, batch, cfg, tuple(sil_phonemes_ids()))
+    ev[1].record()
+    with torch.no_grad():
+        x_t2 = x_t + (x_t - x0) / append_dims(t, 3) * append_dims(t2 - t, 3)
+        gen.set_state(gstate)
+        target, _ = denoise(state.target_params, x_t2, t2, batch, gen, False)
+    ev[2].record()
+    cm = (student - target).abs().mean(dim=(1, 2))
+    loss = ((10.0 * cm + tts) * w).mean()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    ev[3].record()
+    new, _ = opt.update(dict(zip(params, grads)), state.opt_state,
+                        state.params)
+    for e, r in zip(state.ema_params, cfg.train.cm.ema_rate):
+        tree_ema(e, new, r)
+    tree_ema(state.target_params, new, 0.95)
+    ev[4].record()
+    torch.cuda.synchronize()
+    parts = ("student_forward_and_variance_loss", "target_forward",
+             "backward", "optimizer_and_emas")
+    return ({p: ev[i].elapsed_time(ev[i + 1]) for i, p in enumerate(parts)},
+            loss.item(), idx, noise, gstate)
+
+
+def device_busy(fn, reps: int = 3) -> dict:
+    """Run ``fn`` ``reps`` times under ``torch.profiler``: the window's
+    CUDA-event ms, the summed duration of the device kernels in it, their
+    share of the window and kernels per call.  ``busy_share`` is None when
+    the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    window = start.elapsed_time(end)
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"window_ms_per_call": window / reps,
+            "kernel_ms_per_call": busy / reps,
+            "busy_share": busy / window if kernels else None,
+            "kernels_per_call": len(kernels) / reps}
+
+
+def training_phase(counters, root: str, device: str = "cuda") -> dict:
+    """Phase 6 at full LJSpeech width: card vs CPU, timed B=32 steps in
+    f32 and bf16, CD / progdist / EDM, and the CLI journey on ``device``.
+    Returns the readings and the MRF launches of the journey's synthesis;
+    raises on any mismatch."""
+    import copy
+    import dataclasses
+    import shutil
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from cmtts_tpu_torch.audio.wavio import read_wav
+    from cmtts_tpu_torch.cm.karras import schedule_from_config
+    from cmtts_tpu_torch.core.config import load_configs
+    from cmtts_tpu_torch.data.dataset import (
+        FeatureDataset,
+        batch_iterator,
+        collate_batch,
+    )
+    from cmtts_tpu_torch.data.feature_corpus import write_feature_corpus
+    from cmtts_tpu_torch.models.cmtts import CMTTS, init_like_flax
+    from cmtts_tpu_torch.train.loop import batch_to_device, make_train_step
+    from cmtts_tpu_torch.train.resample import create_schedule_sampler
+    from cmtts_tpu_torch.train.state import RAdam, create_train_state
+
+    log("# phase 6: consistency training (LJSpeech config, random init)")
+    dev = torch.device(device)
+    out = {}
+    work = os.path.join(root, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_feature_corpus(os.path.join(work, "pre"), 128, 8, seed=0)
+    config_root = write_training_config(work)
+    cfg = load_configs("LJSpeech", config_root)
+    dataset = FeatureDataset("train.txt", cfg)
+    out["corpus_s"] = time.perf_counter() - t0
+    log(f"  corpus: {len(dataset)} train utterances written and config "
+        f"root ready in {out['corpus_s']:.1f} s")
+
+    # 1. one f32 step at B=2, card vs CPU: same params, indices and noise
+    mc = cfg.model
+    cfg0 = dataclasses.replace(cfg, model=dataclasses.replace(
+        mc, transformer=dataclasses.replace(mc.transformer,
+                                            encoder_dropout=0.0),
+        variance_predictor=dataclasses.replace(mc.variance_predictor,
+                                               dropout=0.0)))
+    cpu_model = init_like_flax(CMTTS(cfg0), torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    lens = [len(dataset[i]["text"]) for i in range(len(dataset))]
+    pair = [dataset[i] for i in np.argsort(lens)[:2]]
+    host = collate_batch(pair, cfg0)
+    idx = torch.tensor([0, 1])
+    noise = torch.randn(host["mels"].shape,
+                        generator=torch.Generator().manual_seed(1))
+    res = {}
+    for name, model, on in (("cpu", cpu_model, "cpu"),
+                            ("card", gpu_model, dev)):
+        opt = RAdam(cfg0.train.cm.lr)
+        st = create_train_state(
+            {k: v.detach() for k, v in model.named_parameters()}, opt, 3)
+        step = make_train_step(model, cfg0, opt, 3)
+        res[name] = step(st, batch_to_device(host, on),
+                         np.asarray([0.5, 0.5], np.float32), 0.95,
+                         indices=idx, noise=noise)
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = res["cpu"], res["card"]
+    errs = {}
+    for k in ("loss", "loss_per_sample", "grad_norm", "tts_loss"):
+        errs[k] = check(f"train step {k}, card vs CPU", m_gpu[k].cpu(),
+                        m_cpu[k], TRAIN_F32_TOL)
+    for what, a, b in (("params", s_gpu.params, s_cpu.params),
+                       ("target", s_gpu.target_params, s_cpu.target_params),
+                       *((f"ema_{i}", e, f) for i, (e, f) in enumerate(
+                           zip(s_gpu.ema_params, s_cpu.ema_params)))):
+        errs[what] = max(check(f"train step {what} {k}, card vs CPU",
+                               a[k].cpu(), b[k], TRAIN_PARAM_TOL)
+                         for k in b)
+    out["card_vs_cpu_max_abs_err"] = errs
+    out["card_vs_cpu_shapes"] = {"B": 2, "mel": host["mels"].shape[1],
+                                 "text": host["texts"].shape[1]}
+    log(f"  f32 step B=2 (mel {host['mels'].shape[1]}), card vs CPU, max "
+        f"|err|: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    del cpu_model, gpu_model, res, s_cpu, s_gpu
+
+    # 2. timed B=32 CT steps on the corpus's bucketed batches, LSM sampler
+    model = init_like_flax(CMTTS(cfg), torch.Generator().manual_seed(0)).to(
+        dev)
+    feed = batch_iterator(dataset, 32, 4, seed=0)
+    batches = [batch_to_device(next(feed), dev) for _ in range(12)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timing = {}
+    for label, cdt in (("f32", None), ("bf16", torch.bfloat16)):
+        opt = RAdam(cfg.train.cm.lr)
+        state = create_train_state(
+            {k: v.detach() for k, v in model.named_parameters()}, opt, 3)
+        sampler = create_schedule_sampler("loss-second-moment", 3)
+        step = make_train_step(model, cfg, opt, 3, compute_dtype=cdt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, flop, losses, probs_seen = [], 0, [], []
+        for i, b in enumerate(batches):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            probs = sampler.probs()
+            probs_seen.append(probs)
+            start.record()
+            state, m = step(state, b, probs, 0.95, gen)
+            end.record()
+            sampler.update(m["indices"].cpu().numpy(),
+                           m["loss_per_sample"].cpu().numpy())
+            torch.cuda.synchronize()
+            losses.append(float(m["loss"]))
+            if i >= 2:       # two warm-ups
+                ms.append(start.elapsed_time(end))
+                B, L = b["mels"].shape[:2]
+                # the denoiser runs forward for the student and the
+                # target, and backward (two forwards' worth) once
+                flop += 4 * denoiser_flop(cfg, B, L)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{label} train losses {losses}")
+        if not any(np.abs(p - 0.5).max() > 1e-3 for p in probs_seen[1:]):
+            raise AssertionError("the LSM sampler's probs stayed uniform")
+        med = statistics.median(ms)
+        timing[label] = {
+            "median_ms": med, "steps_per_s": 1e3 / med, "ms": ms,
+            "mel_buckets": [int(b["mels"].shape[1]) for b in batches[2:]],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "denoiser_tflops": flop / sum(ms) / 1e9,
+            "losses": losses, "lsm_probs_last": probs_seen[-1].tolist()}
+        timing[label]["share_of_bf16_peak"] = (
+            timing[label]["denoiser_tflops"] * 1e12 / PEAK_BF16_FLOPS)
+        split, loss_i, idx, noise, gstate = instrumented_step(
+            model, cfg, opt, state, batches[-1], probs_seen[-1], gen, cdt)
+        gen.set_state(gstate)
+        _, m_ref = step(state, batches[-1], probs_seen[-1], 0.95, gen,
+                        indices=idx, noise=noise)
+        check(f"{label} instrumented step loss", torch.tensor(loss_i),
+              m_ref["loss"].cpu(), dict(rtol=1e-3, atol=1e-3))
+        timing[label]["split_ms"] = split
+        timing[label]["profile"] = device_busy(
+            lambda: step(state, batches[-1], probs_seen[-1], 0.95, gen))
+        t = timing[label]
+        log(f"  CT B=32 {label}: median {med:.2f} ms/step ({t['steps_per_s']:.2f}"
+            f" steps/s) over {len(ms)} steps, mel buckets "
+            f"{sorted(set(t['mel_buckets']))}; peak {t['peak_mem_gib']:.2f} "
+            f"GiB; denoiser {t['denoiser_tflops']:.1f} TFLOP/s "
+            f"({t['share_of_bf16_peak']:.1%} of the bf16 peak); split "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+            + f"; LSM probs after warm-up {np.round(t['lsm_probs_last'], 4)}"
+            f"; profiled: {t['profile']}")
+    out["timed"] = timing
+
+    # 3. one CD, progdist and EDM step each, the CT params as teacher
+    teacher = {k: v.detach().clone() for k, v in state.params.items()}
+    for mode in ("consistency_distillation", "progdist", "edm"):
+        cfg_m = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, cm=dataclasses.replace(cfg.train.cm,
+                                              training_mode=mode)))
+        if mode == "edm" and schedule_from_config(cfg_m).distillation:
+            raise AssertionError("edm must train with plain EDM scalings")
+        opt = RAdam(cfg.train.cm.lr)
+        st = create_train_state(teacher, opt, 3)
+        scales = 4 if mode == "progdist" else 3
+        step = make_train_step(model, cfg_m, opt, scales,
+                               teacher_params=None if mode == "edm"
+                               else teacher, compute_dtype=torch.bfloat16)
+        probs = np.full(scales - 1 + (mode == "progdist"),
+                        1.0 / (scales - 1 + (mode == "progdist")),
+                        np.float32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, m = step(st, batches[3], probs, 0.95, gen)
+        loss = float(m["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"{mode} loss {loss}")
+        out[f"{mode}_loss"] = loss
+        out[f"{mode}_step_ms"] = (time.perf_counter() - t1) * 1e3
+        log(f"  {mode} bf16 B=32 step"
+            + (" (plain EDM scalings)" if mode == "edm" else "")
+            + f": loss {loss:.4f}, "
+            f"{out[f'{mode}_step_ms']:.1f} ms with its first call")
+    del model, batches, state, teacher
+
+    # 4. the journey through the CLIs on the card
+    from cmtts_tpu_torch.cli.synthesize import main as synthesize
+    from cmtts_tpu_torch.cli.train_cm import main as train
+
+    base = ["--model", "consistency_training", "--dataset", "LJSpeech",
+            "--config_root", config_root, "--schedule_sampler",
+            "loss-second-moment", "--device", device]
+    walls = {}
+    t1 = time.perf_counter()
+    r1 = train(base + ["--total_step", "4"])
+    walls["train_to_4_s"] = time.perf_counter() - t1
+    tee = Tee(sys.stdout)
+    t1 = time.perf_counter()
+    with redirect_stdout(tee):
+        r2 = train(base + ["--total_step", "6", "--restore_step", "-1"])
+    walls["resume_to_6_s"] = time.perf_counter() - t1
+    if "auto-resume: step 4" not in tee.text() or r2["start_step"] != 4:
+        raise AssertionError("the CLI did not resume from step 4")
+    a, b = r1["state"], r2["restored"]
+    trees = [(a.params, b.params), (a.target_params, b.target_params),
+             (a.opt_state["mu"], b.opt_state["mu"]),
+             (a.opt_state["nu"], b.opt_state["nu"]),
+             *zip(a.ema_params, b.ema_params)]
+    if (a.step != b.step or a.opt_state["count"] != b.opt_state["count"]
+            or not all(torch.equal(x[k], y[k]) for x, y in trees for k in x)
+            or not all(np.array_equal(v, r2["restored_sampler"][k])
+                       for k, v in r1["sampler"].state_dict().items())):
+        raise AssertionError("the restored state differs from the saved one")
+    losses = r1["losses"] + r2["losses"]
+    if len(losses) != 6 or not np.isfinite(losses).all():
+        raise AssertionError(f"CLI losses {losses}")
+    del r1, r2, a, b, trees
+    for fn in counters:
+        fn.launches = 0
+    out_dir = os.path.join(work, "synth")
+    t1 = time.perf_counter()
+    synthesize(["--mode", "single", "--text", TEXT, "--dataset", "LJSpeech",
+                "--config_root", config_root, "--restore_step", "6", "--T",
+                "1", "--out_dir", out_dir, "--device", device])
+    walls["synthesize_s"] = time.perf_counter() - t1
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if [fn.launches for fn in counters] != [3, 1]:
+        raise AssertionError(f"synthesis from the checkpoint launched "
+                             f"{launches}, not [3, 1]")
+    mel = np.load(os.path.join(out_dir, "single-mel.npy"))
+    wav, _ = read_wav(os.path.join(out_dir, "single.wav"))
+    if (not np.isfinite(mel).all() or not np.isfinite(wav).all()
+            or len(wav) != len(mel) * cfg.stft.hop_length):
+        raise AssertionError(f"synthesis output: mel {mel.shape}, wav "
+                             f"{len(wav)}")
+    out["cli_walls_s"] = walls
+    out["cli_losses"] = losses
+    out["launches"] = launches
+    log(f"  CLIs on the card: train to step 4 {walls['train_to_4_s']:.1f} s, "
+        f"auto-resume to 6 {walls['resume_to_6_s']:.1f} s (restored state "
+        f"equal to the saved one), synthesize --restore_step 6 "
+        f"{walls['synthesize_s']:.1f} s ({len(mel)} frames, MRF launches "
+        f"{launches}); losses {np.round(losses, 3).tolist()}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -656,6 +1056,10 @@ def main() -> int:
                                 os.path.dirname(os.path.abspath(__file__)))
     results["zero_shot"] = zero_shot
 
+    # -- phase 6: consistency training at full LJSpeech width --------------
+    train = training_phase(counters,
+                           os.path.dirname(os.path.abspath(__file__)))
+
     # -- phase 4: summary lines --------------------------------------------
     src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
@@ -668,9 +1072,11 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": launches[name] + zero_shot["launches"][name],
+            "launches": (launches[name] + zero_shot["launches"][name]
+                         + train["launches"][name]),
             "launches_by_phase": {"3": launches[name],
-                                  "5": zero_shot["launches"][name]},
+                                  "5": zero_shot["launches"][name],
+                                  "6": train["launches"][name]},
             "design": "mma.sync bf16", "float32_design": "simt f32",
             "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
             "hmma_in_sass": hmma,
@@ -688,6 +1094,7 @@ def main() -> int:
               for r_ in timing["streamed"] + timing["fused"]]
     print(json.dumps({"rtf": results, "build_s": build_s,
                       "stages_B8": stages}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

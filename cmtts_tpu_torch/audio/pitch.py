@@ -1,8 +1,8 @@
-"""In-graph pitch math (port of the jnp half of
-``cmtts_tpu/audio/pitch.py``): f0 bucketing, f0 de/normalisation and the
-inverse CWT used by the variance adaptor at inference.  The host-side
-extraction half (f0 tracking, forward CWT) belongs to the data pipeline and
-is not ported here.
+"""Pitch math (port of ``cmtts_tpu/audio/pitch.py``): the in-graph half
+(f0 bucketing, f0 de/normalisation and the inverse CWT used by the variance
+adaptor) and the host numpy helpers the data feed uses, copied.  The
+extraction half (f0 tracking, forward CWT) belongs to preprocessing and is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -98,3 +98,61 @@ def cwt2f0_norm(cwt_spec, mean, std, t_mel: int, pitch_norm: str,
     elif t > t_mel:
         f0 = f0[:, :t_mel]
     return norm_f0(f0, None, pitch_norm, f0_mean, f0_std, eps, use_uv=False)
+
+
+# -- host side (numpy), copied from cmtts_tpu/audio/pitch.py ----------------
+
+def f0_to_coarse_np(f0: np.ndarray) -> np.ndarray:
+    f0_mel = 1127.0 * np.log(1.0 + f0 / 700.0)
+    pos = f0_mel > 0
+    f0_mel[pos] = (f0_mel[pos] - F0_MEL_MIN) * (F0_BIN - 2) / (F0_MEL_MAX - F0_MEL_MIN) + 1
+    f0_mel[f0_mel <= 1] = 1
+    f0_mel[f0_mel > F0_BIN - 1] = F0_BIN - 1
+    coarse = np.rint(f0_mel).astype(np.int64)
+    assert coarse.max() <= 255 and coarse.min() >= 1, (coarse.max(), coarse.min())
+    return coarse
+
+
+def norm_f0_np(f0, uv, pitch_norm, f0_mean, f0_std, eps, use_uv):
+    if pitch_norm == "standard":
+        f0 = (f0 - f0_mean) / f0_std
+    elif pitch_norm == "log":
+        f0 = np.log2(f0 + eps)
+    if uv is not None and use_uv:
+        f0[uv > 0] = 0
+    return f0
+
+
+def norm_interp_f0(f0: np.ndarray, pitch_cfg) -> tuple[np.ndarray, np.ndarray]:
+    """Normalize then linearly interpolate through unvoiced gaps.
+
+    Parity: reference ``norm_interp_f0`` (utils/pitch_tools.py:50-61).
+    ``pitch_cfg`` is a :class:`cmtts_tpu_torch.core.config.PitchConfig`.
+    """
+    f0 = f0.astype(np.float64).copy()
+    uv = (f0 == 0).astype(np.float32)
+    f0 = norm_f0_np(
+        f0, uv, pitch_cfg.pitch_norm, pitch_cfg.f0_mean, pitch_cfg.f0_std,
+        pitch_cfg.pitch_norm_eps, pitch_cfg.use_uv,
+    )
+    n_uv = int(uv.sum())
+    if n_uv == len(f0):
+        f0[:] = 0
+    elif n_uv > 0:
+        voiced = np.where(uv == 0)[0]
+        f0[uv > 0] = np.interp(np.where(uv > 0)[0], voiced, f0[voiced])
+    return f0.astype(np.float32), uv
+
+
+def convert_continuous_f0(f0: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """uv flags + gap-interpolated continuous f0 (reference :138-169)."""
+    f0 = np.copy(f0).astype(np.float64)
+    uv = np.float32(f0 != 0)
+    if (f0 == 0).all():
+        return uv, f0
+    nz = np.where(f0 != 0)[0]
+    f0[: nz[0]] = f0[nz[0]]
+    f0[nz[-1]:] = f0[nz[-1]]
+    nz = np.where(f0 != 0)[0]
+    cont = np.interp(np.arange(len(f0)), nz, f0[nz])
+    return uv, cont

@@ -8,10 +8,15 @@ single and long modes).
         [--gap_ms 150] [--speaker_id 0] [--sampler heun --sample_steps 18] \\
         [--vocoder hifigan|griffinlim|none]
 
-``--params`` takes a flat ``a/b/c`` npz of flax CM params and
-``--vocoder_ckpt`` a HiFi-GAN npz; without them the CLI warns and uses
-random weights (with the duration head biased to ~6 frames per phoneme so
-that the output has a realistic length).  Single mode writes
+``--params`` takes a flat ``a/b/c`` npz of flax CM params, and
+``--restore_step N`` a checkpoint of the port's trainer
+(``python -m cmtts_tpu_torch.cli.train_cm``) under the config's
+``ckpt_path`` (with ``--path_tag`` as in training; ``--params_role`` picks
+model, target_model or ema_k), adopting the ``cwt_masked_std`` and
+``training_mode`` the run recorded; ``--vocoder_ckpt`` takes a HiFi-GAN
+npz.  Without them the CLI warns and uses random weights (with the
+duration head biased to ~6 frames per phoneme so that the output has a
+realistic length).  Single mode writes
 ``single.wav`` and ``single-mel.npy`` under ``--out_dir``; long mode splits
 the text into sentences, packs them into chunks that fit the model's frame
 budget, synthesises all chunks as one batch and writes the spliced
@@ -107,6 +112,38 @@ def load_cmtts(cfg, params_path: str | None):
     return random_cmtts(cfg)
 
 
+def restore_cmtts(cfg, step: int, role: str):
+    """(config adopting the run's recorded flags, CMTTS with the ``role``
+    params of checkpoint ``step`` under ``cfg.train.ckpt_path``)."""
+    import dataclasses
+
+    from cmtts_tpu_torch.models.cmtts import CMTTS
+    from cmtts_tpu_torch.train.checkpoint import (
+        read_run_config,
+        restore_checkpoint,
+    )
+
+    run_cfg = read_run_config(cfg.train.ckpt_path)
+    if run_cfg.get("cwt_masked_std") and not cfg.pitch.cwt_masked_std:
+        print("==> checkpoint was trained with --cwt_masked_std; adopting it")
+        cfg = dataclasses.replace(cfg, pitch=dataclasses.replace(
+            cfg.pitch, cwt_masked_std=True))
+    mode = run_cfg.get("training_mode")
+    if mode and mode != cfg.train.cm.training_mode:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, cm=dataclasses.replace(cfg.train.cm,
+                                              training_mode=mode)))
+    payload = restore_checkpoint(cfg.train.ckpt_path, step)
+    if role not in payload:
+        raise SystemExit(f"role {role!r} not in checkpoint (roles: "
+                         f"{sorted(payload)})")
+    model = CMTTS(cfg)
+    model.load_state_dict(payload[role], strict=True)
+    print(f"==> restored {role} of step {int(payload['step'])} from "
+          f"{cfg.train.ckpt_path}")
+    return cfg, model
+
+
 def load_vocoder(cfg, vocoder: str | None, ckpt: str | None, device):
     """(HiFi-GAN generator or None, Griffin-Lim inverter or None) for
     ``--vocoder``: None means HiFi-GAN, random (with a warning) without a
@@ -196,8 +233,17 @@ def main(argv=None):
     parser.add_argument("--sample_steps", type=int, default=2,
                         help="sigma-grid size of the ODE samplers "
                              "(euler, heun, dpm, ancestral)")
+    parser.add_argument("--restore_step", type=int, default=None,
+                        help="synthesize from this checkpoint of the "
+                             "port's trainer")
+    parser.add_argument("--params_role", type=str, default="model",
+                        help="model | target_model | ema_0/1/2")
+    parser.add_argument("--path_tag", type=str, default="",
+                        help="the trainer's --path_tag")
     parser.add_argument("--out_dir", type=str, default="output/result_torch")
     args = parser.parse_args(argv)
+    if args.restore_step is not None and args.params:
+        raise SystemExit("--restore_step and --params exclude each other")
 
     from cmtts_tpu_torch.core.config import load_configs
     from cmtts_tpu_torch.core.device import resolve_device
@@ -205,7 +251,15 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = load_configs(args.dataset, args.config_root)
-    model = load_cmtts(cfg, args.params)
+    if args.restore_step is not None:
+        import dataclasses
+
+        if args.path_tag:
+            cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, ckpt_path=f"{cfg.train.ckpt_path}_{args.path_tag}"))
+        cfg, model = restore_cmtts(cfg, args.restore_step, args.params_role)
+    else:
+        model = load_cmtts(cfg, args.params)
     vocoder, griffin = load_vocoder(cfg, args.vocoder, args.vocoder_ckpt,
                                     device)
     synth = Synthesizer(cfg, model, vocoder, T=args.T, sampler=args.sampler,

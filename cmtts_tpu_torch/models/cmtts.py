@@ -1,5 +1,5 @@
 """CMTTS: conditioning network + denoiser (port of
-``cmtts_tpu/models/cmtts.py``), inference.
+``cmtts_tpu/models/cmtts.py``).
 
   - ``condition``: text (+ speaker) -> conditioning dict (one cond-net pass);
   - ``denoise``:   bare denoiser on precomputed conditioning;
@@ -12,6 +12,7 @@ rows (``speaker_embedder == "none"``) or projects an external embedding
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from cmtts_tpu_torch.core.config import Config
@@ -50,17 +51,34 @@ class CMTTS(nn.Module):
 
     def condition(self, texts, src_lens, t_mel: int, speakers=None,
                   spker_embeds=None, p_control: float = 1.0,
-                  e_control: float = 1.0, d_control: float = 1.0) -> dict:
+                  e_control: float = 1.0, d_control: float = 1.0,
+                  mel2ph=None, d_targets=None, p_targets=None,
+                  e_targets=None, deterministic: bool = True,
+                  generator: torch.Generator | None = None) -> dict:
         """texts (B, T_txt) 0-padded ids, src_lens (B,), static mel bucket
         ``t_mel``, speaker ids (B,) or external embeddings (B, D) -> dict
         with ``cond`` (B, t_mel, H), ``speaker_emb`` (B, H) or None,
-        ``mel_lens``, ``mel2ph`` and the variance predictions."""
+        ``mel_lens``, ``mel2ph`` and the variance predictions.
+
+        The targets (``mel2ph``, ``d_targets``, ``p_targets``,
+        ``e_targets``) teacher-force the variance adaptor; with
+        ``deterministic=False`` the encoder and the predictors drop out,
+        their masks drawn from ``generator``."""
+        mc = self.cfg.model
+        if (not deterministic and generator is None
+                and (mc.transformer.encoder_dropout
+                     or mc.variance_predictor.dropout)):
+            raise ValueError("dropout (deterministic=False) needs a "
+                             "generator")
+        gen = None if deterministic else generator
         src_pad_mask = length_mask(src_lens, texts.shape[1])
-        enc = self.encoder(texts, src_pad_mask)
+        enc = self.encoder(texts, src_pad_mask, gen)
         spk = self._speaker(speakers, spker_embeds)
-        out = self.variance_adaptor(enc, src_pad_mask, t_mel,
-                                    speaker_emb=spk, p_control=p_control,
-                                    e_control=e_control, d_control=d_control)
+        out = self.variance_adaptor(
+            enc, src_pad_mask, t_mel, speaker_emb=spk, p_control=p_control,
+            e_control=e_control, d_control=d_control, mel2ph=mel2ph,
+            d_targets=d_targets, p_targets=p_targets, e_targets=e_targets,
+            generator=gen)
         out["speaker_emb"] = spk
         out["src_pad_mask"] = src_pad_mask
         return out
@@ -70,9 +88,72 @@ class CMTTS(nn.Module):
         return self.denoiser(x_scaled, rescaled_t, cond, speaker_emb)
 
     def forward(self, x_scaled, rescaled_t, texts, src_lens, speakers=None,
-                spker_embeds=None):
-        cond_out = self.condition(texts, src_lens, x_scaled.shape[1],
-                                  speakers=speakers,
-                                  spker_embeds=spker_embeds)
+                spker_embeds=None, mel2ph=None, d_targets=None,
+                p_targets=None, e_targets=None, deterministic: bool = True,
+                generator: torch.Generator | None = None):
+        cond_out = self.condition(
+            texts, src_lens, x_scaled.shape[1], speakers=speakers,
+            spker_embeds=spker_embeds, mel2ph=mel2ph, d_targets=d_targets,
+            p_targets=p_targets, e_targets=e_targets,
+            deterministic=deterministic, generator=generator)
         return (self.denoise(x_scaled, rescaled_t, cond_out["cond"],
                              cond_out["speaker_emb"]), cond_out)
+
+
+# layers the flax modules initialise Glorot-uniform or He-normal; the other
+# Dense and Conv kernels are LeCun-normal, and every bias starts at 0
+_XAVIER = ("q", "k", "v", "out", "proj", "mlp_in", "mlp_out", "t_proj",
+           "spk_proj")
+
+
+def init_like_flax(model: CMTTS, generator: torch.Generator) -> CMTTS:
+    """Re-initialise ``model`` in place with the distributions that
+    ``cmtts_tpu.models.cmtts.CMTTS.init`` draws from (the draws themselves
+    differ): LeCun- or He-normal kernels truncated at two standard
+    deviations, Glorot-uniform ones where the flax module asks for it (the
+    encoder's q, k and v with the fans of their fused (C, 3C) kernel),
+    zero biases, a zero denoiser output head, and the embedding tables'
+    normal(H^-0.5) with row 0 zeroed for pitch and energy."""
+
+    def trunc(w, scale, fan_in):
+        std = (scale / fan_in) ** 0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+
+    H = model.cfg.model.transformer.encoder_hidden
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            parent, _, leaf = name.rpartition(".")
+            if isinstance(m, (nn.Linear, nn.Conv1d)):
+                w = m.weight
+                fan_in = w[0].numel()
+                if name == "denoiser.out_proj":
+                    nn.init.zeros_(w)
+                elif leaf in _XAVIER and (name.startswith("denoiser")
+                                          or parent.startswith("encoder")):
+                    fans = w.shape[0] + fan_in
+                    if leaf in ("q", "k", "v"):
+                        fans = 4 * fan_in
+                    limit = (6.0 / fans) ** 0.5
+                    nn.init.uniform_(w, -limit, limit, generator=generator)
+                elif (name.startswith("denoiser")
+                      or (leaf.startswith("conv_")
+                          and parent.endswith("stack"))):
+                    trunc(w, 2.0, fan_in)
+                else:
+                    trunc(w, 1.0, fan_in)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Embedding):
+                w = m.weight
+                if leaf == "speaker_emb":
+                    nn.init.normal_(w, 0.0, w.shape[0] ** -0.5,
+                                    generator=generator)
+                else:
+                    nn.init.normal_(w, 0.0, H ** -0.5, generator=generator)
+                    if leaf != "tok_embed":
+                        w[0] = 0.0
+            elif isinstance(m, nn.LayerNorm):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+    return model

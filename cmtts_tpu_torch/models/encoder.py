@@ -2,7 +2,8 @@
 
 Pre-LN self-attention + conv-FFN blocks in batch-major (B, T, C) layout
 with an additive key-padding bias; activations are re-masked after every
-sublayer.  Inference only: dropout is the identity.
+sublayer.  Dropout runs at the flax module's four sites when a
+``generator`` is given (training) and is the identity otherwise.
 """
 
 from __future__ import annotations
@@ -17,6 +18,19 @@ from torch import nn
 from cmtts_tpu_torch.core.config import TransformerConfig
 
 NEG_INF = -1e9
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
+    kept values by 1 / (1 - rate), the mask drawn from ``generator``
+    (``F.dropout`` takes none).  The identity when ``generator`` is None
+    (inference) or the rate is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def sinusoid_table(n_positions: int, dim: int) -> np.ndarray:
@@ -90,15 +104,16 @@ class ConvFFN(nn.Module):
     """Conv-k feed-forward with a 1/sqrt(k) post-scale."""
 
     def __init__(self, hidden: int, filter_size: int, kernel_size: int,
-                 act: str = "gelu"):
+                 act: str = "gelu", rate: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
         self.act = act
+        self.rate = rate
         self.conv = nn.Conv1d(hidden, filter_size, kernel_size,
                               padding=(kernel_size - 1) // 2)
         self.proj = nn.Linear(filter_size, hidden)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = self.conv(x.transpose(1, 2)).transpose(1, 2)
         h = h * (self.kernel_size ** -0.5)
         if self.act == "gelu":
@@ -107,7 +122,7 @@ class ConvFFN(nn.Module):
             h = F.relu(h)
         elif self.act == "swish":
             h = h * torch.sigmoid(h)
-        return self.proj(h)
+        return self.proj(dropout(h, self.rate, generator))
 
 
 class FFTBlock(nn.Module):
@@ -117,12 +132,16 @@ class FFTBlock(nn.Module):
         self.ln_attn = nn.LayerNorm(H, eps=1e-12)
         self.attn = MultiHeadSelfAttention(H, cfg.encoder_head)
         self.ln_ffn = nn.LayerNorm(H, eps=1e-12)
-        self.ffn = ConvFFN(H, 4 * H, cfg.ffn_kernel_size, cfg.ffn_act)
+        self.ffn = ConvFFN(H, 4 * H, cfg.ffn_kernel_size, cfg.ffn_act,
+                           cfg.encoder_dropout)
+        self.rate = cfg.encoder_dropout
 
-    def forward(self, x, pad_mask):
+    def forward(self, x, pad_mask, generator=None):
         nonpad = (~pad_mask).to(x.dtype)[..., None]
-        x = (x + self.attn(self.ln_attn(x), pad_mask)) * nonpad
-        x = (x + self.ffn(self.ln_ffn(x))) * nonpad
+        h = self.attn(self.ln_attn(x), pad_mask)
+        x = (x + dropout(h, self.rate, generator)) * nonpad
+        h = self.ffn(self.ln_ffn(x), generator)
+        x = (x + dropout(h, self.rate, generator)) * nonpad
         return x
 
 
@@ -137,17 +156,19 @@ class FFTEncoder(nn.Module):
         H = cfg.encoder_hidden
         self.hidden = H
         self.n_layers = cfg.encoder_layer
+        self.rate = cfg.encoder_dropout
         self.tok_embed = nn.Embedding(vocab_size, H)
         self.pos = PositionalEmbedding(H, max_seq_len * 2)
         for i in range(cfg.encoder_layer):
             self.add_module(f"block_{i}", FFTBlock(cfg))
         self.ln_out = nn.LayerNorm(H, eps=1e-12)
 
-    def forward(self, tokens, pad_mask):
+    def forward(self, tokens, pad_mask, generator=None):
         x = math.sqrt(self.hidden) * self.tok_embed(tokens)
         x = x + self.pos(positions_from_mask(~pad_mask))
+        x = dropout(x, self.rate, generator)
         nonpad = (~pad_mask).to(x.dtype)[..., None]
         x = x * nonpad
         for i in range(self.n_layers):
-            x = getattr(self, f"block_{i}")(x, pad_mask)
+            x = getattr(self, f"block_{i}")(x, pad_mask, generator)
         return self.ln_out(x) * nonpad

@@ -110,7 +110,10 @@ names = [m.name for m in pkgutil.walk_packages(cmtts_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("audio.stft", "models.speaker", "text.segment",
-             "cli.synthesize_zeroshot"):
+             "cli.synthesize_zeroshot", "cm.losses", "train.loop",
+             "train.state", "train.checkpoint", "train.resample", "train.ema",
+             "train.kvlogger", "data.dataset", "data.feature_corpus",
+             "cli.train_cm"):
     assert "cmtts_tpu_torch." + name in names, name
 import numpy as np, torch
 from cmtts_tpu_torch.core.config import config_from_dicts
@@ -142,6 +145,21 @@ assert len(mels) == 2 and np.isfinite(wav).all()
 from cmtts_tpu_torch.audio.stft import GriffinLim, MelSpectrogram
 assert GriffinLim(MelSpectrogram(n_mel_channels=16, device="cpu"),
                   n_iters=2)(mel[0]).shape == (32 * 256,)
+import tempfile
+from torch_port_helpers import train_batch
+from cmtts_tpu_torch.models.cmtts import init_like_flax
+from cmtts_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from cmtts_tpu_torch.train.loop import batch_to_device, make_train_step
+from cmtts_tpu_torch.train.state import RAdam, create_train_state
+tm = init_like_flax(CMTTS(cfg), torch.Generator().manual_seed(0))
+state = create_train_state(dict(tm.named_parameters()), RAdam(1e-4), 3)
+state, metrics = make_train_step(tm, cfg, RAdam(1e-4), 3)(
+    state, batch_to_device(train_batch(0, (8, 5), 8, 32), "cpu"),
+    np.asarray([0.5, 0.5], np.float32), 0.95, torch.Generator().manual_seed(0))
+assert np.isfinite(float(metrics["loss"]))
+with tempfile.TemporaryDirectory() as d:
+    save_checkpoint(d, state)
+    assert int(restore_checkpoint(d)["step"]) == 1
 assert not torch.cuda.is_available()
 try:
     Synthesizer(cfg, model)

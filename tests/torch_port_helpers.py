@@ -52,11 +52,7 @@ def config_dicts(tiny: bool = True, cwt_masked_std: bool = False,
 
 def both_configs(**kw):
     """The same configuration parsed by cmtts_tpu and by the port."""
-    from cmtts_tpu.core.config import config_from_dicts as jax_cfg
-    from cmtts_tpu_torch.core.config import config_from_dicts as torch_cfg
-
-    d = config_dicts(**kw)
-    return jax_cfg(*d), torch_cfg(*d)
+    return configs_from(config_dicts(**kw))
 
 
 @functools.lru_cache(maxsize=4)
@@ -170,3 +166,76 @@ def padded(seqs, t_txt: int):
     for i, s in enumerate(seqs):
         texts[i, : len(s)] = s
     return texts, np.asarray([len(s) for s in seqs], np.int32)
+
+
+def train_batch(seed, lengths, t_txt, t_mel, n_mels=16, pitch_type="cwt",
+                energy_feature="phoneme_level", frames=(1, 4)):
+    """A teacher-forcing batch (numpy, the layout ``collate_batch`` makes)
+    with texts of the given ``lengths`` padded to ``t_txt``, durations of
+    ``frames`` frames a phoneme (cut to ``t_mel``), a few silence phonemes,
+    random mels and targets; f0 is phoneme-level for ``pitch_type`` ph."""
+    from cmtts_tpu_torch.text import sil_phonemes_ids
+
+    rs = np.random.RandomState(seed)
+    B = len(lengths)
+    seqs = tokens(rs, lengths)
+    sil = sil_phonemes_ids()
+    for s in seqs:
+        s[rs.rand(len(s)) < 0.15] = sil[0]
+    texts, src_lens = padded(seqs, t_txt)
+    d = np.zeros((B, t_txt), np.int32)
+    mel2ph = np.zeros((B, t_mel), np.int32)
+    for b, n in enumerate(lengths):
+        d[b, :n] = rs.randint(frames[0], frames[1] + 1, n)
+        m = np.repeat(np.arange(1, n + 1), d[b, :n])[:t_mel]
+        mel2ph[b, :len(m)] = m
+    mel_lens = np.minimum(d.sum(1), t_mel).astype(np.int32)
+    mels = rs.randn(B, t_mel, n_mels).astype(np.float32)
+    mels[np.arange(t_mel)[None, :] >= mel_lens[:, None]] = 0.0
+    f0_len = t_txt if pitch_type == "ph" else t_mel
+    p_targets = {
+        "pitch": rs.randint(1, 255, (B, t_mel)).astype(np.int32),
+        "f0": (rs.rand(B, f0_len) * 2 + 6).astype(np.float32),
+        "uv": (rs.rand(B, t_mel) > 0.7).astype(np.float32),
+    }
+    if pitch_type == "cwt":
+        p_targets.update(
+            cwt_spec=rs.randn(B, t_mel, 10).astype(np.float32),
+            f0_mean=(5 + rs.rand(B)).astype(np.float32),
+            f0_std=(0.2 + 0.3 * rs.rand(B)).astype(np.float32))
+    e_len = t_txt if energy_feature == "phoneme_level" else t_mel
+    return {
+        "speakers": np.zeros(B, np.int32), "texts": texts,
+        "src_lens": src_lens, "mels": mels, "mel_lens": mel_lens,
+        "mel2ph": mel2ph, "d_targets": d,
+        "e_targets": rs.uniform(E_MIN, E_MAX, (B, e_len)).astype(np.float32),
+        "p_targets": p_targets,
+    }
+
+
+def jax_tree(batch):
+    """A numpy batch as jnp arrays (nested dicts kept)."""
+    import jax.numpy as jnp
+
+    return {k: (jax_tree(v) if isinstance(v, dict) else jnp.asarray(v))
+            for k, v in batch.items() if v is not None}
+
+
+def zero_dropout(dicts):
+    """(preprocess, model, train, stats) with every dropout rate 0, so
+    that the two packages' forwards are deterministic and comparable."""
+    pre, model, train, stats = dicts
+    model = dict(model)
+    model["transformer"] = dict(model.get("transformer", {}),
+                                encoder_dropout=0.0)
+    model["variance_predictor"] = dict(model.get("variance_predictor", {}),
+                                       dropout=0.0)
+    return pre, model, train, stats
+
+
+def configs_from(dicts):
+    """(JAX config, port config) parsed from the same dicts."""
+    from cmtts_tpu.core.config import config_from_dicts as jax_cfg
+    from cmtts_tpu_torch.core.config import config_from_dicts as torch_cfg
+
+    return jax_cfg(*dicts), torch_cfg(*dicts)
