@@ -46,7 +46,21 @@ exits non-zero):
      synthesis from the trained checkpoint with HiFi-GAN on random weights,
      whose MRF kernel launches are counted.  Its numbers go on a
      ``{"train": {...}}`` line.
-  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5 and 6), the
+  7. the data journey at full LJSpeech width through the CLIs, under
+     ``build/chip_smoke_data/`` (removed at the end): a 72-utterance
+     formant corpus; ``cli.preprocess`` on the card, then the same
+     TextGrids preprocessed on the card, on the CPU and on the card with 2
+     workers (card vs CPU: the alignment, f0, pitch and CWT features, the
+     split and speakers.json equal, mel, energy and stats.json within
+     tolerance; 2 workers bit-identical to serial), with utterances/s and
+     per-utterance front-end (CUDA events) against host ms; 4 bf16 CT
+     steps; ``cli.synthesize --mode batch --restore_step 0`` of the 8 val
+     utterances with HiFi-GAN on random weights (MRF launches counted);
+     ``cli.all_metrics`` synthesized vs raw and raw vs raw (MCD 0), in two
+     subprocesses beside ``cli.evaluate`` (then card vs CPU on one x_T) and
+     ``cli.get_mel_cache`` (one file vs the CPU).  Its numbers go on a
+     ``{"data": {...}}`` line.
+  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6 and 7), the
      card's name and power limit, and a last line
      ``{"ok": true, "device": {...}}``.
 
@@ -861,6 +875,378 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
     return out
 
 
+# phase 7: the card's log-mel front-end against the CPU's, MEL_TOL
+# (tests/test_torch_port_audio.py) where the mel power is above e^-4, and
+# exp(mel) within MEL_LIN_TOL everywhere: below e^-4 an FFT's float32
+# rounding (~1e-7 of the mel power whatever the bin's level) grows under the
+# log, up to ~2e-3 at the 1e-5 floor (tests/torch_port_helpers.py)
+MEL_TOL = dict(rtol=1e-5, atol=1e-5)
+MEL_LIN_TOL = dict(rtol=1e-5, atol=2e-7)
+ENERGY_TOL = dict(rtol=1e-5, atol=1e-4)   # L2 norms summed in another order
+EVAL_TOL = dict(rtol=2e-4, atol=0.0)      # f32 validation losses, card vs CPU
+METRICS = ["mcd", "mcd_dctmel", "f0_rmse", "ffe", "ssim", "si_sdr",
+           "mfcc_cos"]
+EQUAL_KINDS = ("duration", "mel2ph", "f0", "pitch", "cwt_spec", "cwt_scales",
+               "f0cwt_mean_std")
+
+
+def mel_errors(name, a, b) -> dict:
+    """Max |err| of log-mel ``a`` against ``b`` on the bins above e^-4 and
+    of exp(mel) on every bin; raises beyond MEL_TOL / MEL_LIN_TOL."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    loud = b > -4.0
+    errs = {"log_loud": float(np.abs(a - b)[loud].max(initial=0.0)),
+            "log_all": float(np.abs(a - b).max()),
+            "linear": float(np.abs(np.exp(a) - np.exp(b)).max())}
+    np.testing.assert_allclose(a[loud], b[loud], **MEL_TOL, err_msg=name)
+    np.testing.assert_allclose(np.exp(a), np.exp(b), **MEL_LIN_TOL,
+                               err_msg=name)
+    return errs
+
+
+class FrontEndTimer:
+    """Wraps a Preprocessor's mel front-end, pitch tracker and CWT to time
+    them per utterance: the front-end by CUDA events (on the card) and the
+    host clock, the rest by the host clock."""
+
+    def __init__(self, pre, module, cuda: bool):
+        self.stft, self.cuda, self.module = pre.stft, cuda, module
+        self.rows, self.cur = [], None
+        pre.stft = self
+        utt, cwt = pre.process_utterance, pre.get_f0cwt
+        self.get_pitch = module.get_pitch
+
+        def timed(fn, key):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                self.cur[key] += (time.perf_counter() - t0) * 1e3
+                return out
+            return run
+
+        def utterance(*a, **k):
+            self.cur = {"frontend_ms": 0.0, "frontend_device_ms": 0.0,
+                        "pitch_ms": 0.0, "cwt_ms": 0.0}
+            t0 = time.perf_counter()
+            out = utt(*a, **k)
+            self.cur["utterance_ms"] = (time.perf_counter() - t0) * 1e3
+            self.rows.append(self.cur)
+            return out
+
+        pre.process_utterance = utterance
+        pre.get_f0cwt = timed(cwt, "cwt_ms")
+        module.get_pitch = timed(self.get_pitch, "pitch_ms")
+
+    def __call__(self, wav):
+        import torch
+
+        t0 = time.perf_counter()
+        if self.cuda:
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        out = self.stft(wav)     # host -> card, STFT + mel, card -> host
+        if self.cuda:
+            ev1.record()
+            ev1.synchronize()
+            self.cur["frontend_device_ms"] += ev0.elapsed_time(ev1)
+        self.cur["frontend_ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def restore(self):
+        self.module.get_pitch = self.get_pitch
+
+    def summary(self) -> dict:
+        rows = self.rows
+        out = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+        out["host_ms"] = statistics.median(
+            r["utterance_ms"] - r["frontend_ms"] for r in rows)
+        out["utterances"] = len(rows)
+        return {f"median_{k}" if k != "utterances" else k: v
+                for k, v in out.items()}
+
+
+def compare_preprocessed(a: str, b: str, exact: bool) -> dict:
+    """Compare two preprocessed dirs: bit for bit (``exact``), or the
+    card-vs-CPU contract (EQUAL_KINDS, the split and speakers.json equal;
+    mel, energy and stats.json within tolerance).  Returns max errors."""
+    import numpy as np
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    names = files(a)
+    if names != files(b):
+        raise AssertionError(f"{a} and {b} hold other files")
+    errs = {"mel_log_loud": 0.0, "mel_log_all": 0.0, "mel_linear": 0.0,
+            "energy": 0.0, "stats": 0.0}
+    for rel in names:
+        pa, pb = os.path.join(a, rel), os.path.join(b, rel)
+        with open(pa, "rb") as fa, open(pb, "rb") as fb:
+            same = fa.read() == fb.read()
+        kind = rel.split(os.sep)[0]
+        if same:
+            continue
+        if exact or kind in EQUAL_KINDS or kind == "TextGrid" or rel in (
+                "train.txt", "val.txt", "filtered_out.txt", "speakers.json"):
+            raise AssertionError(f"{rel} differs between {a} and {b}")
+        if kind == "mel":
+            e = mel_errors(rel, np.load(pa), np.load(pb))
+            for k in ("log_loud", "log_all", "linear"):
+                errs[f"mel_{k}"] = max(errs[f"mel_{k}"], e[k])
+        elif kind == "energy":
+            x, y = np.load(pa), np.load(pb)
+            np.testing.assert_allclose(x, y, **ENERGY_TOL, err_msg=rel)
+            errs["energy"] = max(errs["energy"], float(np.abs(x - y).max()))
+        elif rel == "stats.json":
+            with open(pa) as fa, open(pb) as fb:
+                sa, sb = json.load(fa), json.load(fb)
+            if sa["f0"] != sb["f0"] or sa["max_seq_len"] != sb["max_seq_len"]:
+                raise AssertionError(f"stats.json: {sa} vs {sb}")
+            np.testing.assert_allclose(sa["energy"], sb["energy"],
+                                       **ENERGY_TOL, err_msg="stats energy")
+            for k in ("spec_min", "spec_max"):
+                mel_errors(f"stats {k}", sa[k], sb[k])
+                errs["stats"] = max(errs["stats"], float(np.abs(
+                    np.asarray(sa[k]) - np.asarray(sb[k])).max()))
+        else:
+            raise AssertionError(f"{rel} differs between {a} and {b}")
+    return errs
+
+
+def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
+               val_size: int = 8, batch_size: int = 16,
+               tiny: bool = False) -> dict:
+    """Phase 7, wav -> features -> train -> synthesize -> score through the
+    port's CLIs at full LJSpeech width: the formant corpus, preprocessing on
+    the card (against the CPU and against 2 workers), 4 bf16 CT steps, batch
+    synthesis of the val set with HiFi-GAN on random weights, the metrics
+    (two CLI subprocesses beside the rest), validation losses card vs CPU
+    and the mel cache.  Works under ``build/chip_smoke_data``, removed at
+    the end.  Returns the readings and the MRF launches of the synthesis;
+    raises on any failure."""
+    import dataclasses
+    import random
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import cmtts_tpu_torch.data.preprocessor as pp_mod
+    from cmtts_tpu_torch.audio.stft import MelSpectrogram
+    from cmtts_tpu_torch.audio.wavio import read_wav
+    from cmtts_tpu_torch.cli.evaluate import evaluate_cm
+    from cmtts_tpu_torch.cli.evaluate import main as evaluate
+    from cmtts_tpu_torch.cli.gen_corpus import main as gen_corpus
+    from cmtts_tpu_torch.cli.get_mel_cache import main as get_mel_cache
+    from cmtts_tpu_torch.cli.preprocess import main as preprocess
+    from cmtts_tpu_torch.cli.synthesize import main as synthesize
+    from cmtts_tpu_torch.cli.train_cm import main as train
+    from cmtts_tpu_torch.cm.karras import schedule_from_config
+    from cmtts_tpu_torch.core.config import load_configs
+    from cmtts_tpu_torch.data.dataset import FeatureDataset, batch_iterator
+    from cmtts_tpu_torch.metrics.features import load_wav
+    from cmtts_tpu_torch.train.checkpoint import restore_checkpoint
+
+    log("# phase 7: data journey (formant corpus, preprocess, train, batch "
+        "synthesis, metrics, evaluate; LJSpeech config)")
+    cuda = torch.device(device).type == "cuda"
+    work = os.path.join(root, "build", "chip_smoke_data")
+    shutil.rmtree(work, ignore_errors=True)
+    out, walls = {}, {}
+
+    # 1. the corpus and its config root
+    t0 = time.perf_counter()
+    cfg_root = gen_corpus(["--out", work, "--n", str(n_utts), "--val_size",
+                           str(val_size), "--batch_size", str(batch_size),
+                           "--seed", "1234"] + (["--tiny"] if tiny else []))
+    walls["gen_corpus_s"] = time.perf_counter() - t0
+    pre = os.path.join(work, "pre")
+    raw = os.path.join(work, "raw", "SYN")
+
+    # 2. preprocess: the CLI on the card, then card / CPU / card x 2 workers
+    random.seed(0)
+    t0 = time.perf_counter()
+    tr, va = preprocess(["--dataset", "LJSpeech", "--config_root", cfg_root,
+                         "--device", device])
+    walls["preprocess_cli_s"] = time.perf_counter() - t0
+    if (len(tr), len(va)) != (n_utts - val_size, val_size):
+        raise AssertionError(f"preprocess split {len(tr)} / {len(va)}")
+    cfg = load_configs("LJSpeech", cfg_root)
+    runs, timers = {}, {}
+    for name, dev_, workers in (("card", device, 1), ("cpu", "cpu", 1),
+                                ("card_workers2", device, 2)):
+        d = os.path.join(work, f"pre_{name}")
+        shutil.copytree(os.path.join(pre, "TextGrid"),
+                        os.path.join(d, "TextGrid"))
+        c = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, preprocessed_path=d))
+        p = pp_mod.Preprocessor(c, device=dev_)
+        timer = (FrontEndTimer(p, pp_mod, cuda and dev_ != "cpu")
+                 if workers == 1 else None)
+        random.seed(0)
+        t0 = time.perf_counter()
+        try:
+            p.build_from_path(workers=workers)
+        finally:
+            if timer is not None:
+                timer.restore()
+        wall = time.perf_counter() - t0
+        runs[name] = {"wall_s": wall, "utterances_per_s": n_utts / wall}
+        if timer is not None:
+            runs[name].update(timer.summary())
+        msg = f"  preprocess {name}: {n_utts} utterances in {wall:.2f} s " \
+            f"({n_utts / wall:.2f} utt/s)"
+        if timer is not None:
+            s = runs[name]
+            msg += (f"; per utterance (median): front-end "
+                    f"{s['median_frontend_ms']:.3f} ms host clock"
+                    + (f", {s['median_frontend_device_ms']:.3f} ms CUDA "
+                       f"events" if timer.cuda else "")
+                    + f"; host {s['median_host_ms']:.2f} ms (pitch tracker "
+                    f"{s['median_pitch_ms']:.2f}, CWT {s['median_cwt_ms']:.2f}"
+                    f", the rest reads, alignment and npy writes)")
+        log(msg)
+    d = {k: os.path.join(work, f"pre_{k}") for k in runs}
+    errs = compare_preprocessed(d["card"], d["cpu"], exact=False)
+    compare_preprocessed(d["card_workers2"], d["card"], exact=True)
+    out["preprocess"] = runs
+    out["card_vs_cpu_max_abs_err"] = errs
+    log(f"  card vs CPU features: equal {list(EQUAL_KINDS)}, split and "
+        f"speakers.json; max |err| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+        + "; workers=2 bit-identical to serial on the card")
+
+    # 3. four bf16 CT steps on the preprocessed corpus
+    common = ["--dataset", "LJSpeech", "--config_root", cfg_root,
+              "--device", device]
+    t0 = time.perf_counter()
+    r = train(["--model", "consistency_training", "--total_step", "4",
+               "--bf16"] + common)
+    walls["train_s"] = time.perf_counter() - t0
+    if len(r["losses"]) != 4 or not np.isfinite(r["losses"]).all():
+        raise AssertionError(f"train losses {r['losses']}")
+    out["train_losses"] = r["losses"]
+    del r
+
+    # 4. batch synthesis of the val set from the latest checkpoint
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    syn_dir = synthesize(["--mode", "batch", "--source",
+                          os.path.join(pre, "val.txt"), "--restore_step",
+                          "0"] + common)
+    walls["synthesize_s"] = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if cuda and [fn.launches for fn in counters] != [3, 1]:
+        raise AssertionError(f"batch synthesis launched {launches}, not "
+                             f"[3, 1]")
+    with open(os.path.join(pre, "val.txt")) as f:
+        val = [line.split("|")[0] for line in f if line.strip()]
+    names = sorted(os.listdir(syn_dir))
+    if names != sorted([f"{b}.wav" for b in val]
+                       + [f"{b}-mel.npy" for b in val]):
+        raise AssertionError(f"batch synthesis wrote {names}")
+    frames = []
+    for b in val:
+        mel = np.load(os.path.join(syn_dir, f"{b}-mel.npy"))
+        wav, _ = read_wav(os.path.join(syn_dir, f"{b}.wav"))
+        if (not len(wav) or len(wav) != len(mel) * cfg.stft.hop_length
+                or not np.isfinite(mel).all() or not np.isfinite(wav).all()):
+            raise AssertionError(f"{b}: mel {mel.shape}, wav {len(wav)}")
+        frames.append(len(mel))
+    out["synth_frames"] = frames
+    out["launches"] = launches
+    log(f"  batch synthesis of {len(val)} val utterances (restore_step 0): "
+        f"frames {frames}, MRF launches {launches}")
+
+    # 5. the metrics: two CLI subprocesses while the card works on 6 and 7
+    def metrics_cmd(syn_root):
+        return [sys.executable, "-m", "cmtts_tpu_torch.cli.all_metrics",
+                "--single", "--syn_root", syn_root, "--raw_folder", raw,
+                "--metrics", *METRICS, "--device", device]
+
+    t_metrics = time.perf_counter()
+    procs = {k: subprocess.Popen(metrics_cmd(s), cwd=root, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, s in (("syn_vs_raw", syn_dir), ("raw_vs_raw", raw))}
+    try:
+        # 6. validation losses: the CLI on the card, then card vs CPU on one
+        # injected x_T
+        t0 = time.perf_counter()
+        summary = evaluate(common)
+        walls["evaluate_cli_s"] = time.perf_counter() - t0
+        if not np.isfinite(list(summary.values())).all():
+            raise AssertionError(f"evaluate: {summary}")
+        params = restore_checkpoint(cfg.train.ckpt_path)["target_model"]
+        batch = next(batch_iterator(
+            FeatureDataset("val.txt", cfg, sort=False, cache_in_ram=False),
+            min(cfg.train.batch_size, val_size), group_size=1, shuffle=False,
+            epochs=1))
+        x_T = torch.randn(batch["mels"].shape,
+                          generator=torch.Generator().manual_seed(5)) \
+            * schedule_from_config(cfg).sigma_max
+        on_card = evaluate_cm(cfg, params, device=device, x_T=[x_T])
+        on_cpu = evaluate_cm(cfg, params, device="cpu", x_T=[x_T])
+        rel = {}
+        for k, v in on_cpu.items():
+            np.testing.assert_allclose(on_card[k], v, **EVAL_TOL,
+                                       err_msg=f"evaluate {k}, card vs CPU")
+            rel[k] = abs(on_card[k] - v) / max(abs(v), 1e-30)
+        out["evaluate_cli"] = summary
+        out["evaluate_card_vs_cpu_rel_err"] = rel
+        log(f"  evaluate --restore_step 0 on the card: {summary}; card vs "
+            f"CPU on one x_T {tuple(x_T.shape)}, max rel err "
+            f"{max(rel.values()):.3e}")
+
+        # 7. the mel cache of the raw corpus, one file against the CPU
+        cache = os.path.join(work, "mel_cache")
+        t0 = time.perf_counter()
+        if get_mel_cache(["--wav_dir", raw, "--out_dir", cache,
+                          "--device", device]) != n_utts:
+            raise AssertionError("get_mel_cache skipped files")
+        walls["get_mel_cache_s"] = time.perf_counter() - t0
+        wav = load_wav(os.path.join(raw, "syn0000.wav"))
+        cpu_mel = MelSpectrogram(device="cpu")(wav)[0].T
+        out["mel_cache_vs_cpu"] = mel_errors(
+            "mel cache syn0000", np.load(os.path.join(
+                cache, "syn0000-mel.npy")), cpu_mel)
+        log(f"  get_mel_cache: {n_utts} files in "
+            f"{walls['get_mel_cache_s']:.2f} s; syn0000 vs CPU "
+            f"{out['mel_cache_vs_cpu']}")
+
+        # 5, continued
+        scores = {}
+        for k, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"all_metrics {k}: {stderr[-2000:]}")
+            vals = dict(line.split(": ") for line in stdout.splitlines()
+                        if line.split(":")[0] in METRICS)
+            scores[k] = {m: float(vals[m]) for m in METRICS}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    walls["metrics_s"] = time.perf_counter() - t_metrics
+    if not all(np.isfinite(v) for s in scores.values() for v in s.values()):
+        raise AssertionError(f"non-finite metrics: {scores}")
+    if scores["raw_vs_raw"]["mcd"] != 0.0:
+        raise AssertionError(f"raw vs raw MCD {scores['raw_vs_raw']['mcd']}")
+    out["metrics"] = scores
+    log(f"  all_metrics over {len(val)} pairs: synthesized vs raw "
+        f"{scores['syn_vs_raw']}; raw vs raw {scores['raw_vs_raw']} "
+        f"({walls['metrics_s']:.1f} s, beside steps 6-7)")
+    out["walls_s"] = walls
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1060,6 +1446,9 @@ def main() -> int:
     train = training_phase(counters,
                            os.path.dirname(os.path.abspath(__file__)))
 
+    # -- phase 7: wav -> features -> train -> synthesize -> score ---------
+    data = data_phase(counters, os.path.dirname(os.path.abspath(__file__)))
+
     # -- phase 4: summary lines --------------------------------------------
     src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
@@ -1073,10 +1462,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": (launches[name] + zero_shot["launches"][name]
-                         + train["launches"][name]),
+                         + train["launches"][name]
+                         + data["launches"][name]),
             "launches_by_phase": {"3": launches[name],
                                   "5": zero_shot["launches"][name],
-                                  "6": train["launches"][name]},
+                                  "6": train["launches"][name],
+                                  "7": data["launches"][name]},
             "design": "mma.sync bf16", "float32_design": "simt f32",
             "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
             "hmma_in_sass": hmma,
@@ -1095,6 +1486,7 @@ def main() -> int:
     print(json.dumps({"rtf": results, "build_s": build_s,
                       "stages_B8": stages}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"data": data}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

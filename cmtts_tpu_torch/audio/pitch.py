@@ -1,8 +1,8 @@
 """Pitch math (port of ``cmtts_tpu/audio/pitch.py``): the in-graph half
 (f0 bucketing, f0 de/normalisation and the inverse CWT used by the variance
-adaptor) and the host numpy helpers the data feed uses, copied.  The
-extraction half (f0 tracking, forward CWT) belongs to preprocessing and is
-not ported yet.
+adaptor) and the host numpy half, copied: the helpers the data feed uses
+and the extraction functions preprocessing uses (continuous log-f0, the
+Mexican-hat CWT, the autocorrelation f0 tracker, ``get_pitch``).
 """
 
 from __future__ import annotations
@@ -156,3 +156,141 @@ def convert_continuous_f0(f0: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     nz = np.where(f0 != 0)[0]
     cont = np.interp(np.arange(len(f0)), nz, f0[nz])
     return uv, cont
+
+
+def get_cont_lf0(f0: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    uv, cont = convert_continuous_f0(f0)
+    return uv, np.log(cont)
+
+
+# -- Mexican-hat CWT (pycwt-compatible) -------------------------------------
+
+_MEXHAT_FOURIER_FACTOR = 2.0 * np.pi / np.sqrt(2.5)  # m=2 DOG wavelet
+
+
+def cwt_mexican_hat(signal: np.ndarray, dt: float = 0.005, dj: float = 1.0,
+                    s0: float = 0.01, J: int = 9) -> tuple[np.ndarray, np.ndarray]:
+    """Continuous wavelet transform with the Mexican-hat (DOG m=2) mother.
+
+    FFT-based implementation matching pycwt's conventions, so outputs are
+    interchangeable with the reference's ``get_lf0_cwt``
+    (utils/pitch_tools.py:179-195: dt=0.005, dj=1, s0=2*dt, J=9 → 10
+    scales).  Returns (W real part, (J+1, N) transposed to (N, J+1)
+    by the caller) and the scale array s0 * 2^(j*dj).
+    """
+    x = np.asarray(signal, dtype=np.float64)
+    n = len(x)
+    # zero-pad to next power of two (pycwt default)
+    n_fft = int(2 ** np.ceil(np.log2(n)))
+    x_hat = np.fft.fft(x - x.mean(), n=n_fft)
+    omega = 2.0 * np.pi * np.fft.fftfreq(n_fft, d=dt)
+    scales = s0 * 2.0 ** (dj * np.arange(J + 1))
+    W = np.empty((J + 1, n), dtype=np.complex128)
+    m = 2
+    from math import gamma as _gamma
+
+    # DOG(m=2) in Fourier space: -(i^m)/sqrt(gamma(m+1/2)) * (s w)^m exp(-(s w)^2/2)
+    norm_const = -((1j) ** m) / np.sqrt(_gamma(m + 0.5))
+    for j, s in enumerate(scales):
+        sw = s * omega
+        psi_hat = norm_const * (sw ** m) * np.exp(-0.5 * sw ** 2)
+        # pycwt energy normalization: sqrt(2 pi s / dt)
+        psi_hat = psi_hat * np.sqrt(2.0 * np.pi * s / dt)
+        W[j] = np.fft.ifft(x_hat * np.conj(psi_hat), n=n_fft)[:n]
+    return W, scales
+
+
+def get_lf0_cwt(lf0: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(N,) log-f0 -> ((N, 10) real CWT, scales).  Reference :179-195."""
+    W, scales = cwt_mexican_hat(lf0, dt=0.005, dj=1.0, s0=0.01, J=9)
+    return np.real(W).T, scales
+
+
+def norm_scale(cwt: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Standardize each scale over time (reference :198-203)."""
+    mean = cwt.mean(0)[None, :]
+    std = cwt.std(0)[None, :]
+    return (cwt - mean) / std, mean, std
+
+
+def get_lf0_cwt_norm(f0s, mean, std):
+    """Batch CWT of normalized continuous log-f0 (reference :215-241)."""
+    out_specs, out_scales, means, stds = [], [], [], []
+    for f0 in f0s:
+        _, cont_lf0 = get_cont_lf0(f0)
+        cont_norm = (cont_lf0 - mean) / std
+        cwt, scales = get_lf0_cwt(cont_norm)
+        cwt_norm, m, s = norm_scale(cwt)
+        out_specs.append(cwt_norm)
+        out_scales.append(scales)
+        means.append(m)
+        stds.append(s)
+    return out_specs, out_scales, means, stds
+
+
+# -- Autocorrelation pitch tracker (Praat to_pitch_ac substitute) -----------
+
+def estimate_f0_acf(
+    wav: np.ndarray,
+    sr: int,
+    hop_length: int,
+    f0_floor: float = 80.0,
+    f0_ceil: float = 750.0,
+    voicing_threshold: float = 0.45,
+) -> np.ndarray:
+    """Frame-wise f0 via windowed normalized autocorrelation.
+
+    Substitute for parselmouth's ``to_pitch_ac``
+    (reference utils/pitch_tools.py:102-104); returns 0 for unvoiced
+    frames.  Good enough for preprocessing parity at corpus scale; a
+    dedicated tracker can be swapped in via the same signature.
+    """
+    frame_len = int(3 * sr / f0_floor)
+    frame_len = min(frame_len, len(wav))
+    n_frames = max(1 + (len(wav) - frame_len) // hop_length, 1) if len(wav) >= frame_len else 1
+    lag_min = int(sr / f0_ceil)
+    lag_max = min(int(sr / f0_floor), frame_len - 1)
+    f0 = np.zeros(n_frames, dtype=np.float64)
+    window = np.hanning(frame_len)
+    for i in range(n_frames):
+        start = i * hop_length
+        frame = wav[start : start + frame_len]
+        if len(frame) < frame_len:
+            break
+        frame = (frame - frame.mean()) * window
+        power = float(np.dot(frame, frame))
+        if power < 1e-9:
+            continue
+        ac = np.correlate(frame, frame, mode="full")[frame_len - 1 :]
+        ac = ac / (ac[0] + 1e-12)
+        seg = ac[lag_min : lag_max + 1]
+        if seg.size == 0:
+            continue
+        k = int(np.argmax(seg)) + lag_min
+        if ac[k] < voicing_threshold:
+            continue
+        # parabolic interpolation around the peak
+        if 1 <= k < len(ac) - 1:
+            denom = ac[k - 1] - 2 * ac[k] + ac[k + 1]
+            delta = 0.5 * (ac[k - 1] - ac[k + 1]) / denom if abs(denom) > 1e-12 else 0.0
+            k = k + float(np.clip(delta, -1, 1))
+        f0[i] = sr / k
+    return f0
+
+
+def get_pitch(wav: np.ndarray, n_mel_frames: int, sr: int, hop_length: int):
+    """f0 + coarse pitch aligned to the mel frames.
+
+    Mirrors the reference alignment dance (utils/pitch_tools.py:81-118):
+    pad the tracker output to the mel length with a small left pad.
+    """
+    f0 = estimate_f0_acf(wav, sr, hop_length)
+    f0 = f0[: max(n_mel_frames - 8, 0)]
+    pad_size = 2 if hop_length == 256 else 4
+    lpad = pad_size * 2
+    rpad = max(n_mel_frames - len(f0) - lpad, 0)
+    f0 = np.pad(f0, (lpad, rpad), mode="constant")
+    if len(f0) < n_mel_frames:
+        f0 = np.concatenate([f0, np.full(n_mel_frames - len(f0), f0[-1] if len(f0) else 0.0)])
+    f0 = f0[:n_mel_frames]
+    return f0, f0_to_coarse_np(f0.copy())

@@ -1,5 +1,5 @@
 """Synthesis with the PyTorch port (counterpart of ``cli/synthesize.py``,
-single and long modes).
+single, long and batch modes).
 
     python -m cmtts_tpu_torch.cli.synthesize --mode single \\
         --text "Hello world" --T 1 --dataset LJSpeech \\
@@ -7,22 +7,29 @@ single and long modes).
     python -m cmtts_tpu_torch.cli.synthesize --mode long --text "..." \\
         [--gap_ms 150] [--speaker_id 0] [--sampler heun --sample_steps 18] \\
         [--vocoder hifigan|griffinlim|none]
+    python -m cmtts_tpu_torch.cli.synthesize --mode batch \\
+        --source <preprocessed>/val.txt [--batch_size 8] --restore_step 0
 
 ``--params`` takes a flat ``a/b/c`` npz of flax CM params, and
 ``--restore_step N`` a checkpoint of the port's trainer
 (``python -m cmtts_tpu_torch.cli.train_cm``) under the config's
-``ckpt_path`` (with ``--path_tag`` as in training; ``--params_role`` picks
-model, target_model or ema_k), adopting the ``cwt_masked_std`` and
-``training_mode`` the run recorded; ``--vocoder_ckpt`` takes a HiFi-GAN
-npz.  Without them the CLI warns and uses random weights (with the
-duration head biased to ~6 frames per phoneme so that the output has a
-realistic length).  Single mode writes
+``ckpt_path`` (``0``: the latest committed one; with ``--path_tag`` as in
+training; ``--params_role`` picks model, target_model or ema_k), adopting
+the ``cwt_masked_std`` and ``training_mode`` the run recorded;
+``--vocoder_ckpt`` takes a HiFi-GAN npz.  Without them the CLI warns and
+uses random weights (with the duration head biased to ~6 frames per
+phoneme so that the output has a realistic length).  Single mode writes
 ``single.wav`` and ``single-mel.npy`` under ``--out_dir``; long mode splits
 the text into sentences, packs them into chunks that fit the model's frame
 budget, synthesises all chunks as one batch and writes the spliced
 ``long.wav`` and one ``long-chunkNN-mel.npy`` a chunk.  ``--vocoder
 griffinlim`` inverts the mel without a neural vocoder, ``none`` writes mels
-only.  Batch mode needs the dataset module, which is not ported yet.
+only.  Batch mode reads a metadata file (``basename|speaker|{phones}|raw``
+lines, as preprocessing writes ``val.txt``) in batches of ``--batch_size``
+and writes ``<basename>.wav`` and ``<basename>-mel.npy`` for each line.
+Outputs go to ``--out_dir``; without it, a run from a checkpoint writes to
+``<result_path>_cm[_tag]/step_{N}_T{T}[_{sampler}{steps}]`` as the JAX CLI
+does, any other run to ``output/result_torch``.
 """
 
 from __future__ import annotations
@@ -114,7 +121,8 @@ def load_cmtts(cfg, params_path: str | None):
 
 def restore_cmtts(cfg, step: int, role: str):
     """(config adopting the run's recorded flags, CMTTS with the ``role``
-    params of checkpoint ``step`` under ``cfg.train.ckpt_path``)."""
+    params of checkpoint ``step`` under ``cfg.train.ckpt_path``; step 0 is
+    the latest committed one)."""
     import dataclasses
 
     from cmtts_tpu_torch.models.cmtts import CMTTS
@@ -133,7 +141,7 @@ def restore_cmtts(cfg, step: int, role: str):
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, cm=dataclasses.replace(cfg.train.cm,
                                               training_mode=mode)))
-    payload = restore_checkpoint(cfg.train.ckpt_path, step)
+    payload = restore_checkpoint(cfg.train.ckpt_path, step or None)
     if role not in payload:
         raise SystemExit(f"role {role!r} not in checkpoint (roles: "
                          f"{sorted(payload)})")
@@ -200,9 +208,9 @@ def write_outputs(out_dir: str, names, mel, mel_lens, wav, synth, griffin):
     print(f"synthesized {len(names)} -> {out_dir}")
 
 
-def add_common_args(parser):
+def add_common_args(parser, text_required: bool = True):
     """The flags both synthesis CLIs share."""
-    parser.add_argument("--text", type=str, required=True)
+    parser.add_argument("--text", type=str, required=text_required)
     parser.add_argument("--config_root", type=str, default=None)
     parser.add_argument("--T", type=int, default=1, choices=[1, 2, 4])
     parser.add_argument("--params", type=str, default=None,
@@ -220,10 +228,13 @@ def add_common_args(parser):
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--mode", type=str, choices=["single", "long"],
-                        required=True)
+    parser.add_argument("--mode", type=str,
+                        choices=["single", "long", "batch"], required=True)
     parser.add_argument("--dataset", type=str, default="LJSpeech")
-    add_common_args(parser)
+    add_common_args(parser, text_required=False)
+    parser.add_argument("--source", type=str, default=None,
+                        help="batch mode: metadata file to synthesize")
+    parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--gap_ms", type=float, default=150.0,
                         help="long mode: silence between chunks")
     parser.add_argument("--speaker_id", type=int, default=0)
@@ -235,15 +246,19 @@ def main(argv=None):
                              "(euler, heun, dpm, ancestral)")
     parser.add_argument("--restore_step", type=int, default=None,
                         help="synthesize from this checkpoint of the "
-                             "port's trainer")
+                             "port's trainer (0: the latest committed one)")
     parser.add_argument("--params_role", type=str, default="model",
                         help="model | target_model | ema_0/1/2")
     parser.add_argument("--path_tag", type=str, default="",
                         help="the trainer's --path_tag")
-    parser.add_argument("--out_dir", type=str, default="output/result_torch")
+    parser.add_argument("--out_dir", type=str, default=None)
     args = parser.parse_args(argv)
     if args.restore_step is not None and args.params:
         raise SystemExit("--restore_step and --params exclude each other")
+    if args.mode == "batch" and not args.source:
+        raise SystemExit("--mode batch needs --source")
+    if args.mode != "batch" and args.text is None:
+        raise SystemExit(f"--mode {args.mode} needs --text")
 
     from cmtts_tpu_torch.core.config import load_configs
     from cmtts_tpu_torch.core.device import resolve_device
@@ -251,13 +266,21 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = load_configs(args.dataset, args.config_root)
+    tag = f"_{args.path_tag}" if args.path_tag else ""
+    out_dir = args.out_dir or "output/result_torch"
     if args.restore_step is not None:
         import dataclasses
 
-        if args.path_tag:
+        if tag:
             cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-                cfg.train, ckpt_path=f"{cfg.train.ckpt_path}_{args.path_tag}"))
+                cfg.train, ckpt_path=cfg.train.ckpt_path + tag))
         cfg, model = restore_cmtts(cfg, args.restore_step, args.params_role)
+        if args.out_dir is None:
+            out_dir = os.path.join(
+                cfg.train.result_path + "_cm" + tag,
+                f"step_{args.restore_step}_T{args.T}"
+                + (f"_{args.sampler}{args.sample_steps}" if args.sampler in
+                   ("heun", "euler", "dpm", "ancestral") else ""))
     else:
         model = load_cmtts(cfg, args.params)
     vocoder, griffin = load_vocoder(cfg, args.vocoder, args.vocoder_ckpt,
@@ -276,9 +299,21 @@ def main(argv=None):
         mel, mel_lens, wav = synth(
             [tokenize(args.text)], speakers=np.asarray([args.speaker_id]),
             seed=args.seed, **controls)
-        write_outputs(args.out_dir, ["single"], mel, mel_lens, wav, synth,
+        write_outputs(out_dir, ["single"], mel, mel_lens, wav, synth,
                       griffin)
-        return
+        return out_dir
+    if args.mode == "batch":
+        from cmtts_tpu_torch.data.dataset import TextMetaDataset
+
+        dataset = TextMetaDataset(args.source, cfg)
+        for batch in dataset.batches(args.batch_size):
+            mel, mel_lens, wav = synth(
+                batch["tokens"], speakers=batch["speakers"],
+                spker_embeds=batch["spker_embeds"], seed=args.seed,
+                **controls)
+            write_outputs(out_dir, batch["ids"], mel, mel_lens, wav, synth,
+                          griffin)
+        return out_dir
 
     # long: sentences -> chunks that fit the frame budget -> one batched
     # call -> the chunks' waveforms spliced with gap_ms of silence
@@ -304,12 +339,13 @@ def main(argv=None):
         for i, m in enumerate(mels):
             pieces += [griffin(m)] + ([gap] if i < len(mels) - 1 else [])
         wav = np.concatenate(pieces)
-    os.makedirs(args.out_dir, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
     if wav is not None:
-        write_wav(os.path.join(args.out_dir, "long.wav"), wav, sr)
-        print(f"long.wav: {len(wav) / sr:.1f}s -> {args.out_dir}")
+        write_wav(os.path.join(out_dir, "long.wav"), wav, sr)
+        print(f"long.wav: {len(wav) / sr:.1f}s -> {out_dir}")
     for i, m in enumerate(mels):
-        np.save(os.path.join(args.out_dir, f"long-chunk{i:02d}-mel.npy"), m)
+        np.save(os.path.join(out_dir, f"long-chunk{i:02d}-mel.npy"), m)
+    return out_dir
 
 
 if __name__ == "__main__":

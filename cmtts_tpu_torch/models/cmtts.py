@@ -112,15 +112,15 @@ def init_like_flax(model: CMTTS, generator: torch.Generator) -> CMTTS:
     differ): LeCun- or He-normal kernels truncated at two standard
     deviations, Glorot-uniform ones where the flax module asks for it (the
     encoder's q, k and v with the fans of their fused (C, 3C) kernel),
-    zero biases, a zero denoiser output head, and the embedding tables'
-    normal(H^-0.5) with row 0 zeroed for pitch and energy."""
+    zero biases, a zero denoiser output head, and every embedding table
+    (the speaker table too) normal(H^-0.5) with row 0 zeroed for pitch and
+    energy."""
 
     def trunc(w, scale, fan_in):
         std = (scale / fan_in) ** 0.5 / 0.87962566103423978
         nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                               generator=generator)
 
-    H = model.cfg.model.transformer.encoder_hidden
     with torch.no_grad():
         for name, m in model.named_modules():
             parent, _, leaf = name.rpartition(".")
@@ -146,13 +146,11 @@ def init_like_flax(model: CMTTS, generator: torch.Generator) -> CMTTS:
                     nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Embedding):
                 w = m.weight
-                if leaf == "speaker_emb":
-                    nn.init.normal_(w, 0.0, w.shape[0] ** -0.5,
-                                    generator=generator)
-                else:
-                    nn.init.normal_(w, 0.0, H ** -0.5, generator=generator)
-                    if leaf != "tok_embed":
-                        w[0] = 0.0
+                # flax's default nn.Embed: normal(features^-0.5)
+                nn.init.normal_(w, 0.0, w.shape[1] ** -0.5,
+                                generator=generator)
+                if leaf not in ("tok_embed", "speaker_emb"):
+                    w[0] = 0.0
             elif isinstance(m, nn.LayerNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)

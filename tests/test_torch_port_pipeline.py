@@ -113,7 +113,12 @@ for name in ("audio.stft", "models.speaker", "text.segment",
              "cli.synthesize_zeroshot", "cm.losses", "train.loop",
              "train.state", "train.checkpoint", "train.resample", "train.ema",
              "train.kvlogger", "data.dataset", "data.feature_corpus",
-             "cli.train_cm"):
+             "cli.train_cm", "data.textgrid", "data.prepare",
+             "data.synthcorpus", "data.preprocessor", "metrics.yin",
+             "metrics.dtw", "metrics.features", "metrics.core",
+             "metrics.harness", "utils_plot", "cli.gen_corpus",
+             "cli.prepare_align", "cli.preprocess", "cli.get_mel_cache",
+             "cli.all_metrics", "cli.evaluate"):
     assert "cmtts_tpu_torch." + name in names, name
 import numpy as np, torch
 from cmtts_tpu_torch.core.config import config_from_dicts

@@ -213,39 +213,51 @@ def test_init_like_flax_matches_flax_init():
     it: zero where flax is zero (biases, the denoiser's output head,
     embedding row 0 of pitch and energy), ones for LayerNorm scales, and a
     standard deviation within 20% of flax's for every tensor of 256 or
-    more entries (same shapes through the bridge)."""
+    more entries (same shapes through the bridge).  Two configurations: the
+    single-speaker one, and a multi-speaker one whose speaker table (8
+    speakers x H 64 = 512 entries) flax draws from normal(H^-0.5)."""
     import jax
     import jax.numpy as jnp
 
     from cmtts_tpu.models.cmtts import CMTTS as JCMTTS
     from cmtts_tpu_torch.convert import flax_to_state_dict
+    from cmtts_tpu_torch.models.cmtts import init_like_flax
     from torch_port_helpers import configs_from, torch_cm
 
-    dicts = config_dicts()
-    dicts[1]["transformer"] = dict(dicts[1]["transformer"],
-                                   encoder_hidden=64)
-    dicts[1]["denoiser"] = dict(residual_channels=64, residual_layers=2)
-    jcfg, tcfg = configs_from(dicts)
-    B = 1
-    variables = jax.jit(JCMTTS(jcfg).init, static_argnames="deterministic")(
-        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(0)},
-        jnp.zeros((B, 32, 16)), jnp.zeros(B),
-        speakers=jnp.zeros(B, jnp.int32), texts=jnp.ones((B, 8), jnp.int32),
-        src_lens=jnp.full((B,), 8, jnp.int32), deterministic=True)
-    flax = jax.tree_util.tree_map(np.asarray, variables["params"])
-    from cmtts_tpu_torch.models.cmtts import init_like_flax
+    for speaker_embedder in (None, "none"):
+        dicts = config_dicts(speaker_embedder=speaker_embedder)
+        dicts[1]["transformer"] = dict(dicts[1]["transformer"],
+                                       encoder_hidden=64)
+        dicts[1]["denoiser"] = dict(residual_channels=64, residual_layers=2)
+        if speaker_embedder is not None:
+            dicts[3]["n_speakers"] = 8
+        jcfg, tcfg = configs_from(dicts)
+        B = 1
+        variables = jax.jit(JCMTTS(jcfg).init,
+                            static_argnames="deterministic")(
+            {"params": jax.random.PRNGKey(0),
+             "dropout": jax.random.PRNGKey(0)},
+            jnp.zeros((B, 32, 16)), jnp.zeros(B),
+            speakers=jnp.zeros(B, jnp.int32),
+            texts=jnp.ones((B, 8), jnp.int32),
+            src_lens=jnp.full((B,), 8, jnp.int32),
+            spker_embeds=jnp.zeros((B, jcfg.model.external_speaker_dim)),
+            deterministic=True)
+        flax = jax.tree_util.tree_map(np.asarray, variables["params"])
 
-    model = torch_cm(tcfg, flax)
-    ref = flax_to_state_dict(flax, model)
-    init_like_flax(model, torch.Generator().manual_seed(1))
-    for k, v in model.named_parameters():
-        r = ref[k]
-        if not r.any():
-            assert not v.any(), k
-        elif (r == 1).all():
-            assert (v == 1).all(), k
-        elif r.numel() >= 256:
-            ratio = float(v.detach().std() / r.std())
-            assert 0.8 < ratio < 1.25, (k, ratio)
-    for name in ("pitch_embed", "energy_embed"):
-        assert not getattr(model.variance_adaptor, name).weight[0].any()
+        model = torch_cm(tcfg, flax)
+        ref = flax_to_state_dict(flax, model)
+        init_like_flax(model, torch.Generator().manual_seed(1))
+        if speaker_embedder is not None:
+            assert model.speaker_emb.weight.numel() >= 256
+        for k, v in model.named_parameters():
+            r = ref[k]
+            if not r.any():
+                assert not v.any(), (speaker_embedder, k)
+            elif (r == 1).all():
+                assert (v == 1).all(), (speaker_embedder, k)
+            elif r.numel() >= 256:
+                ratio = float(v.detach().std() / r.std())
+                assert 0.8 < ratio < 1.25, (speaker_embedder, k, ratio)
+        for name in ("pitch_embed", "energy_embed"):
+            assert not getattr(model.variance_adaptor, name).weight[0].any()

@@ -8,6 +8,24 @@ import numpy as np
 
 E_MIN, E_MAX = -1.0, 2.0
 
+# the port's log-mel front-end against the JAX one (or the card's against
+# the CPU's): MEL_TOL (tests/test_torch_port_audio.py) where the mel power
+# is above e^-4.  Below it two float32 FFTs' rounding, ~1e-7 of the mel
+# power whatever the bin's level (3.1e-7 at most measured on a formant
+# corpus), is magnified by the log, up to 1.8e-3 at the 1e-5 floor of
+# near-silent frames, so all bins are also held in the linear domain:
+# exp(mel) within MEL_LIN_TOL.
+MEL_TOL = dict(rtol=1e-5, atol=1e-5)
+MEL_LIN_TOL = dict(rtol=1e-5, atol=2e-7)
+
+
+def assert_mel_close(a, b, msg=""):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    loud = b > -4.0
+    np.testing.assert_allclose(a[loud], b[loud], **MEL_TOL, err_msg=msg)
+    np.testing.assert_allclose(np.exp(a), np.exp(b), **MEL_LIN_TOL,
+                               err_msg=msg)
+
 
 def config_dicts(tiny: bool = True, cwt_masked_std: bool = False,
                  n_mels: int = 16, speaker_embedder: str | None = None,
