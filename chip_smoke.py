@@ -60,8 +60,23 @@ exits non-zero):
      subprocesses beside ``cli.evaluate`` (then card vs CPU on one x_T) and
      ``cli.get_mel_cache`` (one file vs the CPU).  Its numbers go on a
      ``{"data": {...}}`` line.
-  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6 and 7), the
-     card's name and power limit, and a last line
+  8. serving and reference checkpoints at full LJSpeech width under
+     ``build/chip_smoke_serve/`` (removed at the end): HiFi-GAN V1 and V2
+     (width 128) ``.pth.tar`` files with weight norm and a melgan-neurips
+     ``best_netG.pt`` written from seeded random port modules; V1 through
+     ``cli.convert_checkpoint`` and back, against its source in f32; the
+     HTTP server over a bf16 ``Synthesizer`` with that V1: warm-up of
+     batches 1-8, ``/healthz``, 10 sequential requests (median latency and
+     RTF; the served wav against the direct call), 8 concurrent ones
+     through a 20 ms batching window, a stream over three sentences (time
+     to first byte), a long text through the chunked path, MRF launches 3
+     fused and 1 streamed per device call; ``cli.p_rtf_cm`` over 16
+     utterances at batch 8; ``cli.synthesize`` with the V2 file (3 fused
+     launches and a plain last stage, against the plain V2 generator),
+     with MelGAN (card vs CPU) and with ``--lang zh``.  Its numbers go on
+     a ``{"serve": {...}}`` line.
+  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6, 7 and 8),
+     the card's name and power limit, and a last line
      ``{"ok": true, "device": {...}}``.
 
 Needs CUDA; exits non-zero without it.
@@ -1247,6 +1262,411 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
     return out
 
 
+# -- phase 8: serving and reference checkpoints ----------------------------
+
+# three LJSpeech sentences (LJ001-0001, -0003, -0004), one chunk each
+SENTENCES = (TEXT, "For although the Chinese took impressions from wood "
+             "blocks engraved in relief for centuries before the "
+             "woodcutters of the Netherlands, by a similar process.",
+             "It produced the block books, which were the immediate "
+             "predecessors of the true printed book.")
+ARPABET = ("AA1 AE1 AH0 AO1 AW1 AY1 B CH D DH EH1 ER0 EY1 F G HH IH0 IY1 JH "
+           "K L M N NG OW1 P R S SH T TH UW1 V W Y Z").split()
+
+
+class CountingSynth:
+    """A ``Synthesizer`` that counts its calls, each one device call, so
+    that the MRF launches can be held to 3 fused and 1 streamed a call."""
+
+    def __init__(self, synth):
+        self._synth, self.calls = synth, 0
+
+    def __getattr__(self, name):
+        return getattr(self._synth, name)
+
+    def __call__(self, *a, **k):
+        self.calls += 1
+        return self._synth(*a, **k)
+
+
+def write_serve_config(work: str, tiny: bool) -> str:
+    """``write_training_config`` under ``work``, with a narrow acoustic
+    model when ``tiny`` (a CPU rehearsal), and the corpus's
+    ``speakers.json``."""
+    import yaml
+
+    root = write_training_config(work)
+    if tiny:
+        path = os.path.join(root, "LJSpeech", "model.yaml")
+        with open(path) as f:
+            model = yaml.safe_load(f)
+        model["transformer"].update(encoder_layer=1, encoder_hidden=32)
+        model["denoiser"].update(residual_layers=2, residual_channels=32)
+        model["variance_predictor"].update(filter_size=32, cwt_hidden_size=8)
+        with open(path, "w") as f:
+            yaml.safe_dump(model, f)
+    os.makedirs(os.path.join(work, "pre"), exist_ok=True)
+    with open(os.path.join(work, "pre", "speakers.json"), "w") as f:
+        json.dump({"LJSpeech": 0}, f)
+    return root
+
+
+def serve_phase(counters, root: str, rtf_b8: float | None = None,
+                device: str = "cuda", tiny: bool = False) -> dict:
+    """Phase 8 at full LJSpeech width: reference-format vocoder files
+    written from seeded random port modules and read back (one through
+    ``cli.convert_checkpoint``); the HTTP server over a bf16
+    ``Synthesizer`` answering sequential, concurrent, streamed and long
+    requests; ``cli.p_rtf_cm``; ``cli.synthesize`` with a V2 HiFi-GAN
+    ``.pth.tar``, with MelGAN and with ``--lang zh``.  Works under
+    ``build/chip_smoke_serve``, removed at the end.  Returns the readings
+    and the MRF launches; raises on any failure."""
+    import shutil
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from torch_port_helpers import (  # numpy and torch only
+        hifigan_reference_state_dict,
+        melgan_reference_module,
+    )
+
+    from cmtts_tpu_torch.cli.convert_checkpoint import main as convert
+    from cmtts_tpu_torch.cli.p_rtf_cm import main as p_rtf
+    from cmtts_tpu_torch.cli.serve import TTSService, pcm16, serve
+    from cmtts_tpu_torch.cli.synthesize import main as synthesize
+    from cmtts_tpu_torch.cli.synthesize import random_cmtts
+    from cmtts_tpu_torch.core.config import load_configs
+    from cmtts_tpu_torch.core.masks import DEFAULT_MEL_BUCKETS, pick_bucket
+    from cmtts_tpu_torch.models.hifigan import (
+        HiFiGANConfig,
+        HiFiGANGenerator,
+        load_hifigan,
+    )
+    from cmtts_tpu_torch.models.melgan import MelGANConfig, load_melgan
+    from cmtts_tpu_torch.pipeline import Synthesizer
+    from cmtts_tpu_torch.train.checkpoint import save_checkpoint
+    from cmtts_tpu_torch.train.state import RAdam, create_train_state
+
+    log("# phase 8: serving and reference checkpoints (LJSpeech config, "
+        "random weights)")
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    work = os.path.join(root, "build", "chip_smoke_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg_root = write_serve_config(work, tiny)
+    cfg = load_configs("LJSpeech", cfg_root)
+    hop, sr = cfg.stft.hop_length, cfg.stft.sampling_rate
+    out, walls = {}, {}
+    for fn in counters:
+        fn.launches = 0
+
+    def launches():
+        return [fn.launches for fn in counters]
+
+    def expect_launches(what, before, per_call):
+        rose = [a - b for a, b in zip(launches(), before)]
+        if cuda and rose != per_call:
+            raise AssertionError(f"{what}: MRF launches {rose} != {per_call}")
+        return rose
+
+    # 1. reference-format files from seeded random port modules
+    scale = 8 if tiny else 1
+    gens = {}
+    for name, width, seed in (("v1", 512, 11), ("v2", 128, 12)):
+        torch.manual_seed(seed)
+        g = HiFiGANGenerator(HiFiGANConfig(
+            upsample_initial_channel=width // scale)).eval()
+        path = os.path.join(work, f"generator_{name}.pth.tar")
+        torch.save({"generator": hifigan_reference_state_dict(g, seed)}, path)
+        gens[name] = (g.to(dev), path)
+    mcfg = MelGANConfig()
+    melgan_pt = os.path.join(work, "best_netG.pt")
+    torch.save(melgan_reference_module(mcfg, seed=13).state_dict(), melgan_pt)
+    v1_npz = os.path.join(work, "generator_v1.npz")
+    convert(["--dataset", "LJSpeech", "--config_root", cfg_root,
+             "--hifigan_pt", gens["v1"][1], "--hifigan_out", v1_npz])
+    v1 = load_hifigan(v1_npz, cfg).to(dev)
+
+    # 2. the loaded V1 against the generator it was written from
+    mel = torch.randn(2, 64, cfg.stft.n_mel_channels,
+                      generator=torch.Generator().manual_seed(8)).to(dev)
+    with torch.no_grad():
+        out["err_v1_loaded_vs_source"] = check(
+            "V1 .pth.tar -> convert_checkpoint -> npz vs its source, f32",
+            v1(mel), gens["v1"][0](mel), F32_TOL)
+    log(f"  V1 generator_v1.pth.tar -> cli.convert_checkpoint -> npz: "
+        f"plain forward vs its source max|err| "
+        f"{out['err_v1_loaded_vs_source']:.3e}")
+
+    # 3. the HTTP server over a bf16 Synthesizer with that V1
+    model = random_cmtts(cfg, seed=1)
+    synth = CountingSynth(Synthesizer(cfg, model, v1, T=1, device=device))
+    direct = TTSService(synth, cfg, max_batch=1)
+    batched = TTSService(synth, cfg, max_batch=8, batch_window_ms=20.0)
+    t0 = time.perf_counter()
+    out["warmup_calls"] = batched.warmup(log=lambda m: log("  " + m))
+    walls["warmup_B1_to_B8_s"] = time.perf_counter() - t0
+    servers = [serve(svc, "127.0.0.1", 0) for svc in (direct, batched)]
+    threads = [threading.Thread(target=h.serve_forever, daemon=True)
+               for h in servers]
+    for t in threads:
+        t.start()
+
+    def post(url, body):
+        return urllib.request.Request(
+            url + "/tts", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+
+    try:
+        url_d, url_b = (f"http://127.0.0.1:{h.server_address[1]}"
+                        for h in servers)
+        with urllib.request.urlopen(url_d + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health["status"] != "ok" or set(health["mrf_launches"]) != {
+                fn.__name__ for fn in counters}:
+            raise AssertionError(f"healthz: {health}")
+        out["healthz_device"] = health["device"]
+
+        # 10 sequential requests; then the served wav against the direct
+        # path (alone in the batching window, and as served PCM)
+        lat, rtfs, client = [], [], []
+        for seed in range(10):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(post(url_d, {"text": TEXT,
+                                                     "seed": seed}),
+                                        timeout=300) as r:
+                body = r.read()
+                lat.append(float(r.headers["X-Latency-Ms"]))
+                rtfs.append(float(r.headers["X-RTF"]))
+            client.append((time.perf_counter() - t0) * 1e3)
+        toks = direct.tokens(TEXT)
+        _, lens, wav = synth([toks], seed=9)
+        ref = wav[0][: int(lens[0]) * hop]
+        served = batched.synthesize(TEXT, seed=9)[0]
+        out["err_served_vs_direct"] = check(
+            "served wav (alone in the window) vs synth([tokens], seed)",
+            torch.from_numpy(served), torch.from_numpy(ref),
+            dict(rtol=0, atol=1e-5))
+        pcm = np.frombuffer(body[44:], "<i2").astype(np.int32)
+        lsb = int(np.abs(pcm - np.frombuffer(pcm16(ref), "<i2")).max())
+        if lsb > 1:
+            raise AssertionError(f"served PCM differs by {lsb} LSB")
+        out["B1_latency_ms_median"] = statistics.median(lat)
+        out["B1_rtf_median"] = statistics.median(rtfs)
+        out["B1_client_ms_median"] = statistics.median(client)
+        out["B1_audio_s"] = len(ref) / sr
+        log(f"  10 sequential POST /tts ({len(toks)} tokens, "
+            f"{out['B1_audio_s']:.3f} s of audio): median X-Latency-Ms "
+            f"{out['B1_latency_ms_median']:.1f}, X-RTF "
+            f"{out['B1_rtf_median']:.5f}, client wall "
+            f"{out['B1_client_ms_median']:.1f} ms; served vs direct "
+            f"{out['err_served_vs_direct']:.3e}, PCM within {lsb} LSB")
+
+        # the same B=1 call without HTTP, in turns: in this thread, in one
+        # persistent thread, and in a thread of its own (as the server
+        # runs each request)
+        def one_call(seed):
+            t0 = time.perf_counter()
+            synth([toks], seed=seed)
+            return (time.perf_counter() - t0) * 1e3
+
+        def own_thread(seed):
+            box = []
+            t = threading.Thread(target=lambda: box.append(one_call(seed)))
+            t.start()
+            t.join(timeout=120)
+            return box[0]
+
+        calls = {"main_thread": [], "persistent_thread": [],
+                 "own_thread": []}
+        with ThreadPoolExecutor(1) as pool:
+            for seed in range(10):
+                calls["main_thread"].append(one_call(seed))
+                calls["persistent_thread"].append(
+                    pool.submit(one_call, seed).result())
+                calls["own_thread"].append(own_thread(seed))
+        out["B1_call_ms_median"] = {k: statistics.median(v)
+                                    for k, v in calls.items()}
+        log("  the B=1 call alone, median ms: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["B1_call_ms_median"].items()))
+
+        # 8 concurrent requests through the batching window
+        bodies = [None] * 8
+
+        def one(i):
+            with urllib.request.urlopen(post(url_b, {"text": TEXT,
+                                                     "seed": 5}),
+                                        timeout=300) as r:
+                bodies[i] = r.read()
+
+        workers = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+        t0 = time.perf_counter()
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(b is None for b in bodies) or any(t.is_alive()
+                                                 for t in workers):
+            raise AssertionError("a concurrent request did not complete")
+        hist = dict(batched.batch_hist)
+        if max(hist) < 2:
+            raise AssertionError(f"no coalesced batch: {hist}")
+        audio = sum((len(b) - 44) // 2 for b in bodies) / sr
+        out["concurrent8_wall_s"] = wall
+        out["concurrent8_audio_s_per_wall_s"] = audio / wall
+        out["batch_hist"] = {str(k): v for k, v in sorted(hist.items())}
+        log(f"  8 concurrent requests (max_batch 8, window 20 ms): wall "
+            f"{wall * 1e3:.1f} ms, {audio / wall:.2f} s of audio per s, "
+            f"batches {out['batch_hist']}")
+
+        # a stream over three sentences: time to first byte vs the whole
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(post(url_d, {
+                "text": " ".join(SENTENCES), "seed": 3, "stream": 1}),
+                timeout=300) as r:
+            head = r.read(44)
+            ttfb = time.perf_counter() - t0
+            rest = r.read()
+        total = time.perf_counter() - t0
+        if head[:4] != b"RIFF" or head[8:12] != b"WAVE" or not rest:
+            raise AssertionError("stream: not a RIFF/WAVE stream")
+        out["stream_ttfb_ms"], out["stream_total_ms"] = ttfb * 1e3, total * 1e3
+        out["stream_audio_s"] = (len(head) - 44 + len(rest)) / 2 / sr
+        log(f"  stream=1, 3 sentences: first byte after {ttfb * 1e3:.1f} ms, "
+            f"all {out['stream_audio_s']:.3f} s of audio after "
+            f"{total * 1e3:.1f} ms")
+
+        # a text over the token budget takes the chunked path
+        taken = []
+        long_path = direct._synthesize_long
+        direct._synthesize_long = lambda *a: taken.append(1) or long_path(*a)
+        wav_l, _, lat_l, _ = direct.synthesize(" ".join(SENTENCES * 2),
+                                               seed=2)
+        del direct._synthesize_long
+        if taken != [1] or not np.isfinite(wav_l).all():
+            raise AssertionError("long text did not take the chunked path")
+        out["long_latency_ms"], out["long_audio_s"] = lat_l * 1e3, len(
+            wav_l) / sr
+        log(f"  long text ({len(direct.tokens(' '.join(SENTENCES * 2)))} "
+            f"tokens > budget): chunked, {len(wav_l) / sr:.3f} s of audio in "
+            f"{lat_l * 1e3:.1f} ms")
+        with urllib.request.urlopen(url_d + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        for h in servers:
+            h.shutdown()
+            h.server_close()
+        for t in threads:
+            t.join(timeout=30)
+    out["healthz"] = health
+    out["service_device_calls"] = synth.calls
+    n = synth.calls
+    expect_launches(f"{n} device calls of the service", [0, 0], [3 * n, n])
+    log(f"  service: {n} device calls, MRF launches {launches()}, "
+        f"{len(synth.shapes_run)} shapes run; healthz device "
+        f"{health['device']}")
+
+    # 4. cli.p_rtf_cm on a 16-line metadata file at batch 8
+    state = create_train_state(
+        {k: v.detach() for k, v in model.named_parameters()}, RAdam(1e-4),
+        len(cfg.train.cm.ema_rate))
+    state.step = 1
+    save_checkpoint(cfg.train.ckpt_path, state)
+    rs = np.random.RandomState(14)
+    meta = os.path.join(work, "pre", "rtf16.txt")
+    with open(meta, "w") as f:
+        for i in range(16):
+            phones = " ".join(rs.choice(ARPABET, rs.randint(60, 97)))
+            f.write(f"rtf{i:02d}|LJSpeech|{{{phones}}}|raw\n")
+    before = launches()
+    t0 = time.perf_counter()
+    res = p_rtf(["--dataset", "LJSpeech", "--config_root", cfg_root,
+                 "--source", meta, "--batch_size", "8", "--vocoder_ckpt",
+                 v1_npz, "--out", os.path.join(work, "rtf"), "--device",
+                 device])
+    walls["p_rtf_cm_s"] = time.perf_counter() - t0
+    expect_launches("p_rtf_cm (3 calls)", before, [9, 3])
+    if not np.isfinite(res["mean_rtf"]):
+        raise AssertionError(f"p_rtf_cm: {res}")
+    out["p_rtf_cm"] = res
+    log(f"  cli.p_rtf_cm, 16 utterances at batch 8: mean_rtf "
+        f"{res['mean_rtf']:.6f} ({res['audio_seconds']:.2f} s of audio); "
+        f"phase 3's B=8 T=1 RTF {rtf_b8}")
+
+    # 5. cli.synthesize with the V2 .pth.tar, with MelGAN, with --lang zh
+    base = ["--mode", "single", "--dataset", "LJSpeech", "--config_root",
+            cfg_root, "--device", device]
+    before = launches()
+    t0 = time.perf_counter()
+    synthesize(base + ["--text", TEXT, "--vocoder_ckpt", gens["v2"][1],
+                       "--out_dir", os.path.join(work, "v2")])
+    walls["cli_v2_s"] = time.perf_counter() - t0
+    out["v2_cli_launches"] = expect_launches("V2 CLI", before, [3, 0])
+    v2 = load_hifigan(gens["v2"][1], cfg)
+    s2 = Synthesizer(cfg, model, v2, T=1, device=device)
+    out["v2_routes"] = s2.vocoder_packed.routes
+    t_mel = pick_bucket(min(len(toks) * 10, cfg.model.max_seq_len),
+                        DEFAULT_MEL_BUCKETS)
+    x_T = torch.randn(1, t_mel, cfg.stft.n_mel_channels,
+                      generator=torch.Generator().manual_seed(15)) \
+        * s2.sched.sigma_max
+    before = launches()
+    mel2, _, wav2 = s2([toks], x_T=x_T)
+    expect_launches("V2 synthesis", before, [3, 0])
+    with torch.no_grad():
+        plain = gens["v2"][0](torch.from_numpy(mel2).to(dev)).cpu()
+    out["err_v2_vs_plain"] = check(
+        "V2 (bf16 kernels + plain last stage) vs the plain V2 generator",
+        torch.from_numpy(wav2), plain, BF16_TOL)
+    log(f"  cli.synthesize --vocoder_ckpt generator_v2.pth.tar: launches "
+        f"{out['v2_cli_launches']}, routes {out['v2_routes']}; wav vs the "
+        f"plain V2 generator {out['err_v2_vs_plain']:.3e}")
+
+    t0 = time.perf_counter()
+    synthesize(base + ["--text", TEXT, "--vocoder", "melgan",
+                       "--vocoder_ckpt", melgan_pt, "--out_dir",
+                       os.path.join(work, "melgan")])
+    walls["cli_melgan_s"] = time.perf_counter() - t0
+    mel_m = np.load(os.path.join(work, "melgan", "single-mel.npy"))
+    log_mel = torch.from_numpy(mel_m[None] / np.log(10.0))
+    with torch.no_grad():
+        on_dev = load_melgan(melgan_pt, mcfg).to(dev)(log_mel.to(dev)).cpu()
+        on_cpu = load_melgan(melgan_pt, mcfg)(log_mel)
+    out["err_melgan_card_vs_cpu"] = check("MelGAN card vs CPU, f32", on_dev,
+                                          on_cpu, F32_TOL)
+    log(f"  cli.synthesize --vocoder melgan --vocoder_ckpt best_netG.pt: "
+        f"{len(mel_m)} frames; MelGAN card vs CPU "
+        f"{out['err_melgan_card_vs_cpu']:.3e}")
+
+    before = launches()
+    zh = synthesize(base + ["--lang", "zh", "--text", "ni3 hao3 shi4 jie4",
+                            "--vocoder_ckpt", v1_npz, "--out_dir",
+                            os.path.join(work, "zh")])
+    expect_launches("--lang zh", before, [3, 1])
+    mel_zh = np.load(os.path.join(zh, "single-mel.npy"))
+    if not (mel_zh.size and np.isfinite(mel_zh).all()):
+        raise AssertionError(f"--lang zh mel {mel_zh.shape}")
+    log(f"  cli.synthesize --lang zh 'ni3 hao3 shi4 jie4': {len(mel_zh)} "
+        f"frames")
+
+    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    if cuda and min(out["launches"].values()) == 0:
+        raise AssertionError(f"a kernel never ran in phase 8: "
+                             f"{out['launches']}")
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    log(f"# phase 8 launches {out['launches']}, {walls['phase_s']:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1449,6 +1869,10 @@ def main() -> int:
     # -- phase 7: wav -> features -> train -> synthesize -> score ---------
     data = data_phase(counters, os.path.dirname(os.path.abspath(__file__)))
 
+    # -- phase 8: serving and reference checkpoints -------------------------
+    served = serve_phase(counters, os.path.dirname(os.path.abspath(__file__)),
+                         results["B8_T1"])
+
     # -- phase 4: summary lines --------------------------------------------
     src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
@@ -1463,11 +1887,13 @@ def main() -> int:
             "replaces": replaces,
             "launches": (launches[name] + zero_shot["launches"][name]
                          + train["launches"][name]
-                         + data["launches"][name]),
+                         + data["launches"][name]
+                         + served["launches"][name]),
             "launches_by_phase": {"3": launches[name],
                                   "5": zero_shot["launches"][name],
                                   "6": train["launches"][name],
-                                  "7": data["launches"][name]},
+                                  "7": data["launches"][name],
+                                  "8": served["launches"][name]},
             "design": "mma.sync bf16", "float32_design": "simt f32",
             "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
             "hmma_in_sass": hmma,
@@ -1487,6 +1913,7 @@ def main() -> int:
                       "stages_B8": stages}))
     print(json.dumps({"train": train}))
     print(json.dumps({"data": data}))
+    print(json.dumps({"serve": served}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,9 @@ recorded with other graph-affecting flags.  With ``DIFFUSION_TRAINING_TEST``
 set it stops after the first save.
 
 A distillation teacher is a step directory of this port's checkpoints
-(``--teacher_role`` picks model, target_model or ema_k) or a flat ``a/b/c``
-npz of flax params; the student starts from a copy of it.
+(``--teacher_role`` picks model, target_model or ema_k), a flat ``a/b/c``
+npz of flax params or a reference ``CMTotalTTS`` state dict (``.pt``,
+converted on load); the student starts from a copy of it.
 """
 
 from __future__ import annotations
@@ -43,13 +44,17 @@ def _replace_cm(cfg, **kw):
 
 def load_teacher(path: str, role: str, model, device):
     """(teacher params, trained as edm or None) from a step directory of
-    this port's checkpoints or a flat npz of flax params."""
+    this port's checkpoints, a flat npz of flax params or a reference
+    torch checkpoint (no edm detection for the last two, as in JAX)."""
     from cmtts_tpu_torch.convert import flax_to_state_dict
+    from cmtts_tpu_torch.from_torch import load_torch_cm_checkpoint
     from cmtts_tpu_torch.models.hifigan import unflatten_npz
     from cmtts_tpu_torch.train.checkpoint import load_step_dir
 
-    if path.endswith(".npz"):
-        params = flax_to_state_dict(unflatten_npz(path), model)
+    if path.endswith((".npz", ".pt")):
+        tree = (unflatten_npz(path) if path.endswith(".npz")
+                else load_torch_cm_checkpoint(path, model.cfg))
+        params = flax_to_state_dict(tree, model)
         return {k: v.to(device) for k, v in params.items()}, None
     payload = load_step_dir(path)
     if role not in payload:
@@ -72,8 +77,8 @@ def main(argv=None) -> dict:
                                  "edm"])
     parser.add_argument("--teacher_path", type=str, default=None,
                         help="distillation teacher: a checkpoint step "
-                             "directory of this port or a flat npz of flax "
-                             "params")
+                             "directory of this port, a flat npz of flax "
+                             "params or a reference .pt")
     parser.add_argument("--teacher_role", type=str, default="model",
                         help="model | target_model | ema_0/1/2")
     parser.add_argument("--teacher_edm", action="store_true", default=None,

@@ -11,8 +11,11 @@ Both are ordinary torch modules (cuDNN runs the convs and the LSTM on the
 card).  The host front-ends are numpy, copied verbatim.  A checkpoint is a
 flat ``a/b/c`` npz of the flax variables, loaded through the bridge: the
 GE2E params, or DeepSpeaker's ``params/...`` and ``batch_stats/...``.
-Without one the embedders warn and use random weights from a seed.  The
-GE2E loss and the Keras ``.h5`` DeepSpeaker loader are not ported here.
+The reference formats load too, through numpy converters copied from the
+JAX module: GE2E's torch ``encoder.pt`` (``model_state``) and the in-repo
+GE2E trainer's ``.npy`` blob, DeepSpeaker's Keras ``.h5`` (``h5py``,
+imported on use).  Without a checkpoint the embedders warn and use random
+weights from a seed.  The GE2E loss is not ported here.
 """
 
 from __future__ import annotations
@@ -303,22 +306,144 @@ def _seeded(cls, what: str):
         return cls()
 
 
+# Copied from cmtts_tpu/models/speaker.py::convert_torch_ge2e (numpy).
+def convert_torch_ge2e(state_dict: dict, hidden=256, embedding=256,
+                       num_layers=3) -> dict:
+    """torch ``SpeakerEncoder.state_dict()`` (ge2e_encoder/model.py;
+    ``encoder.pt`` checkpoint key 'model_state') -> GE2EEncoder flax params.
+
+    torch LSTM packs gates (i, f, g, o) rows in weight_ih_l{k} (4H, in);
+    the flax OptimizedLSTMCell keeps one Dense per gate and source (``ii``..
+    input kernels, ``hi``.. hidden kernels with the bias), so
+    ``bias_ih + bias_hh`` folds into the ``h*`` biases (the bridge gives it
+    back as ``bias_ih`` with ``bias_hh`` = 0).
+    """
+    params: dict = {}
+    for k in range(num_layers):
+        w_ih = np.asarray(state_dict[f"lstm.weight_ih_l{k}"])   # (4H, in)
+        w_hh = np.asarray(state_dict[f"lstm.weight_hh_l{k}"])   # (4H, H)
+        b = (np.asarray(state_dict[f"lstm.bias_ih_l{k}"])
+             + np.asarray(state_dict[f"lstm.bias_hh_l{k}"]))    # (4H,)
+        H = hidden
+        gates = {"i": slice(0, H), "f": slice(H, 2 * H),
+                 "g": slice(2 * H, 3 * H), "o": slice(3 * H, 4 * H)}
+        cell: dict = {}
+        for gname, sl in gates.items():
+            cell[f"i{gname}"] = {"kernel": w_ih[sl].T}
+            cell[f"h{gname}"] = {"kernel": w_hh[sl].T, "bias": b[sl]}
+        params[f"lstm_{k}"] = cell
+    params["proj"] = {"kernel": np.asarray(state_dict["linear.weight"]).T,
+                      "bias": np.asarray(state_dict["linear.bias"])}
+    return params
+
+
+def load_torch_ge2e(path: str) -> dict:
+    """GE2E flax params from the reference's torch checkpoint."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model_state", ckpt)
+    sd = {k: v.detach().cpu().numpy() for k, v in sd.items()
+          if torch.is_tensor(v)}
+    return convert_torch_ge2e(sd)
+
+
+def load_ge2e_params(ckpt_path: str) -> dict:
+    """GE2E encoder flax params from the in-repo GE2E trainer's ``.npy``
+    (a pickled one-element object array ``[{"encoder": params,
+    "sim_weight", "sim_bias"}]``), a torch ``.pt`` or a flat npz."""
+    if ckpt_path.endswith(".npy"):
+        return np.load(ckpt_path, allow_pickle=True)[0]["encoder"]
+    if ckpt_path.endswith(".npz"):
+        return unflatten_npz(ckpt_path)
+    return load_torch_ge2e(ckpt_path)
+
+
+# Copied from cmtts_tpu/models/speaker.py::convert_keras_deepspeaker_h5
+# (h5py imported on use, failing closed without it).
+def convert_keras_deepspeaker_h5(h5_path: str) -> tuple[dict, dict]:
+    """Keras ResCNN .h5 checkpoint -> (params, batch_stats).
+
+    Keras Conv2D kernel (kh, kw, in, out) matches flax; BN stores
+    gamma/beta/moving_mean/moving_variance.
+    """
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("reading a Keras .h5 DeepSpeaker checkpoint needs "
+                          "h5py, which is not installed; convert it to a "
+                          "flat npz where h5py is") from e
+
+    f = h5py.File(h5_path, "r")
+    root = f["model_weights"] if "model_weights" in f else f
+
+    def g(layer, name):
+        grp = root[layer]
+        while not isinstance(grp, h5py.Dataset) and name not in grp:
+            keys = list(grp.keys())
+            if len(keys) != 1:
+                break
+            grp = grp[keys[0]]
+        return np.asarray(grp[name])
+
+    params: dict = {}
+    stats: dict = {}
+    stage_filters = (64, 128, 256, 512)
+    for i, filt in enumerate(stage_filters):
+        conv_name = f"conv{filt}-s"
+        sp: dict = {"conv": {"kernel": g(conv_name, "kernel:0"),
+                             "bias": g(conv_name, "bias:0")}}
+        sb: dict = {}
+        bn = conv_name + "_bn"
+        sp["bn"] = {"scale": g(bn, "gamma:0"), "bias": g(bn, "beta:0")}
+        sb["bn"] = {"mean": g(bn, "moving_mean:0"),
+                    "var": g(bn, "moving_variance:0")}
+        for b in range(3):
+            base = f"res{i+1}_{b}_branch"
+            rp = {
+                "conv_a": {"kernel": g(base + "_2a", "kernel:0"),
+                           "bias": g(base + "_2a", "bias:0")},
+                "bn_a": {"scale": g(base + "_2a_bn", "gamma:0"),
+                         "bias": g(base + "_2a_bn", "beta:0")},
+                "conv_b": {"kernel": g(base + "_2b", "kernel:0"),
+                           "bias": g(base + "_2b", "bias:0")},
+                "bn_b": {"scale": g(base + "_2b_bn", "gamma:0"),
+                         "bias": g(base + "_2b_bn", "beta:0")},
+            }
+            rb = {
+                "bn_a": {"mean": g(base + "_2a_bn", "moving_mean:0"),
+                         "var": g(base + "_2a_bn", "moving_variance:0")},
+                "bn_b": {"mean": g(base + "_2b_bn", "moving_mean:0"),
+                         "var": g(base + "_2b_bn", "moving_variance:0")},
+            }
+            sp[f"res_{b}"] = rp
+            sb[f"res_{b}"] = rb
+        params[f"stage_{i}"] = sp
+        stats[f"stage_{i}"] = sb
+    params["affine"] = {"kernel": g("affine", "kernel:0"),
+                        "bias": g("affine", "bias:0")}
+    f.close()
+    return params, stats
+
+
 def ge2e_from_checkpoint(ckpt_path: str | None = None) -> GE2EEncoder:
-    """GE2EEncoder from a flat npz of its flax params, else random."""
+    """GE2EEncoder from :func:`load_ge2e_params`'s formats, else random."""
     if not ckpt_path:
         return _seeded(GE2EEncoder, "GE2E")
-    return load_flax_params(GE2EEncoder(), unflatten_npz(ckpt_path))
+    return load_flax_params(GE2EEncoder(), load_ge2e_params(ckpt_path))
 
 
 def deepspeaker_from_checkpoint(ckpt_path: str | None = None
                                 ) -> DeepSpeakerResCNN:
     """DeepSpeakerResCNN from a flat npz of its flax variables
-    (``params/...`` and ``batch_stats/...``), else random."""
+    (``params/...`` and ``batch_stats/...``) or a Keras ``.h5``, else
+    random."""
     if not ckpt_path:
         return _seeded(DeepSpeakerResCNN, "DeepSpeaker")
-    tree = unflatten_npz(ckpt_path)
-    return load_flax_params(DeepSpeakerResCNN(), tree["params"],
-                            tree.get("batch_stats"))
+    if ckpt_path.endswith(".h5"):
+        params, stats = convert_keras_deepspeaker_h5(ckpt_path)
+    else:
+        tree = unflatten_npz(ckpt_path)
+        params, stats = tree["params"], tree.get("batch_stats")
+    return load_flax_params(DeepSpeakerResCNN(), params, stats)
 
 
 class PreDefinedEmbedder:

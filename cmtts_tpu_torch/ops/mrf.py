@@ -306,6 +306,25 @@ def _smem_bytes(C, tile, itemsize, halo, pad, in_shared):
     return ab + head
 
 
+def kernel_takes(C: int, compute_dtype, kernel_sizes=(3, 7, 11),
+                 dilations=(1, 3, 5), post_k: int = 0) -> bool:
+    """Whether the kernels take a stage of C channels in ``compute_dtype``
+    (with a fused head of ``post_k`` taps when ``post_k`` > 0): C a
+    multiple of 16 in bfloat16 (one k16 step of ``mma.sync``) or of 8 in
+    float32, at most 4 ResBlocks and 4 dilation pairs, and in bfloat16 the
+    smallest length tile's buffers in shared memory.  The vocoder routes a
+    stage by it when it packs the weights, and the launch refuses a stage
+    it rejects."""
+    if compute_dtype not in _DTYPE_CODE:
+        return False
+    bf16 = compute_dtype == torch.bfloat16
+    if C % (16 if bf16 else 8) or len(kernel_sizes) > 4 or len(dilations) > 4:
+        return False
+    pad = (post_k - 1) // 2 if post_k else 0
+    halo = receptive_radius(kernel_sizes, dilations) + pad
+    return not bf16 or _smem_bytes(C, 32, 2, halo, pad, True) <= SMEM_LIMIT
+
+
 def _launch(x, packed, kernel_sizes, dilations, compute_dtype, post):
     if compute_dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported compute dtype {compute_dtype}")
@@ -316,10 +335,11 @@ def _launch(x, packed, kernel_sizes, dilations, compute_dtype, post):
     w, b, w_frag = packed
     kw = w_frag if bf16 else w       # the layout this dtype's kernel reads
     n_conv = 2 * len(kernel_sizes) * len(dilations)
-    if (C % (16 if bf16 else 8) or len(kernel_sizes) > 4
-            or len(dilations) > 4):
+    if not kernel_takes(C, compute_dtype, kernel_sizes, dilations,
+                        post[0].shape[0] if post is not None else 0):
         raise ValueError(f"unsupported stage shape C={C} "
-                         f"kernel_sizes={kernel_sizes} dilations={dilations}")
+                         f"kernel_sizes={kernel_sizes} dilations={dilations} "
+                         f"in {compute_dtype}")
     n_weights = 2 * len(dilations) * sum(kernel_sizes) * C * C
     if kw is None:
         raise ValueError("the bf16 kernel needs the weights in fragment "
@@ -344,10 +364,7 @@ def _launch(x, packed, kernel_sizes, dilations, compute_dtype, post):
     tile, in_shared = plan_tile(C, L, itemsize, halo, pad)
     n_tiles = -(-L // tile)
     scratch = None
-    if not in_shared:
-        if bf16:
-            raise ValueError(f"C={C} is too wide for the bf16 kernel's "
-                             "shared memory")
+    if not in_shared:   # float32 only: kernel_takes holds bf16 in shared
         scratch = torch.empty(B * n_tiles * 2 * C * (tile + 2 * halo),
                               dtype=compute_dtype, device=x.device)
     out = torch.empty((B, L) if post is not None else (B, C, L),

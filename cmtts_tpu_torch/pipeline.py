@@ -4,8 +4,10 @@
 The conditioning network runs once, the consistency sampler drives only the
 bare denoiser (a bf16 copy of it by default, as the JAX pipeline casts the
 denoiser to bf16), and HiFi-GAN vocodes the padded mel through the port's
-MRF kernels.  Token batches are padded to the same text and mel buckets as
-the JAX pipeline: the padded inverse-CWT standardisation depends on them.
+MRF kernels (a ``MelGANGenerator`` takes ``mel / ln 10`` in float32
+instead, as the JAX pipeline feeds MelGAN).  Token batches are padded to
+the same text and mel buckets as the JAX pipeline: the padded inverse-CWT
+standardisation depends on them.
 Sampler math and outputs stay float32; public layouts are JAX's: mel
 (B, L, n_mels), wav (B, L * hop).  ``synthesize_long`` runs the chunks of a
 long text as one batch and splices their waveforms.
@@ -14,6 +16,7 @@ long text as one batch and splices their waveforms.
 from __future__ import annotations
 
 import copy
+import math
 import warnings
 from typing import Sequence
 
@@ -36,6 +39,7 @@ from cmtts_tpu_torch.models.hifigan import (
     hifigan_apply_fused,
     pack_generator,
 )
+from cmtts_tpu_torch.models.melgan import MelGANGenerator
 
 
 def warn_if_bucket_saturated(mel_lens: np.ndarray, mel_bucket: int) -> bool:
@@ -56,12 +60,15 @@ class Synthesizer:
 
     ``device`` defaults to ``cuda`` and raises when CUDA is absent; tests
     pass ``device="cpu"``.  ``model`` and ``vocoder`` are moved to the
-    device; the denoiser runs as a ``compute_dtype`` copy, and the vocoder's
-    MRF stages compute in ``compute_dtype`` with float32 accumulation.
+    device; the denoiser runs as a ``compute_dtype`` copy, and a HiFi-GAN
+    vocoder's MRF stages compute in ``compute_dtype`` with float32
+    accumulation.  ``shapes_run`` holds the (mel bucket, vocode) shapes it
+    has run, the keys of the JAX pipeline's compiled graphs.
     """
 
     def __init__(self, cfg: Config, model: CMTTS,
-                 vocoder: HiFiGANGenerator | None = None, T: int = 1,
+                 vocoder: HiFiGANGenerator | MelGANGenerator | None = None,
+                 T: int = 1,
                  sampler: str | None = None, sample_steps: int = 2,
                  text_buckets: Sequence[int] = DEFAULT_TEXT_BUCKETS,
                  mel_buckets: Sequence[int] = DEFAULT_MEL_BUCKETS,
@@ -74,8 +81,9 @@ class Synthesizer:
         if compute_dtype != torch.float32:
             self.denoiser = copy.deepcopy(self.denoiser).to(compute_dtype)
         self.vocoder = None if vocoder is None else vocoder.to(self.device).eval()
-        self.vocoder_packed = (None if vocoder is None
-                               else pack_generator(self.vocoder, compute_dtype))
+        self.vocoder_packed = (pack_generator(self.vocoder, compute_dtype)
+                               if isinstance(vocoder, HiFiGANGenerator)
+                               else None)
         self.T = T
         self.sampler = sampler or ("onestep" if T == 1 else "multistep")
         self.sample_steps = sample_steps
@@ -83,6 +91,7 @@ class Synthesizer:
         self.text_buckets = tuple(text_buckets)
         self.mel_buckets = tuple(mel_buckets)
         self.compute_dtype = compute_dtype
+        self.shapes_run: set[tuple[int, bool]] = set()
 
     @torch.no_grad()
     def synthesize(self, texts: torch.Tensor, src_lens: torch.Tensor,
@@ -119,7 +128,9 @@ class Synthesizer:
             ts=default_ts(self.T) if self.sampler == "multistep" else None,
             x_T=x_T, noise=noise, generator=generator, device=self.device)
         wav = None
-        if self.vocoder is not None:
+        if isinstance(self.vocoder, MelGANGenerator):
+            wav = self.vocoder(mel / math.log(10.0))   # ln-mel -> log10-mel
+        elif self.vocoder is not None:
             wav = hifigan_apply_fused(self.vocoder, mel, self.vocoder_packed,
                                       cdt)
         return mel, cond_out["mel_lens"], wav
@@ -170,6 +181,7 @@ class Synthesizer:
                 np.asarray(spker_embeds, np.float32), device=self.device),
             d_control=d_control, p_control=p_control, e_control=e_control,
             x_T=x_T, noise=noise, generator=generator)
+        self.shapes_run.add((mel_bucket, self.vocoder is not None))
         mel_lens = mel_lens.cpu().numpy()
         warn_if_bucket_saturated(mel_lens, mel_bucket)
         return (mel.cpu().numpy(), mel_lens,

@@ -118,7 +118,9 @@ for name in ("audio.stft", "models.speaker", "text.segment",
              "metrics.dtw", "metrics.features", "metrics.core",
              "metrics.harness", "utils_plot", "cli.gen_corpus",
              "cli.prepare_align", "cli.preprocess", "cli.get_mel_cache",
-             "cli.all_metrics", "cli.evaluate"):
+             "cli.all_metrics", "cli.evaluate", "from_torch",
+             "models.melgan", "text.pinyin", "cli.convert_checkpoint",
+             "cli.serve", "cli.p_rtf_cm"):
     assert "cmtts_tpu_torch." + name in names, name
 import numpy as np, torch
 from cmtts_tpu_torch.core.config import config_from_dicts

@@ -257,3 +257,199 @@ def configs_from(dicts):
     from cmtts_tpu_torch.core.config import config_from_dicts as torch_cfg
 
     return jax_cfg(*dicts), torch_cfg(*dicts)
+
+
+def reference_state_dict(params, cfg):
+    """A reference ``CMTotalTTS.state_dict()`` (numpy) holding the flax
+    tree ``params``: the inverse of ``cmtts_tpu/convert/from_torch.py``'s
+    rules (Dense kernel -> Linear weight (out, in); Conv kernel (k, in, out)
+    -> Conv1d (out, in, k); 1x1 convs of Dense kernels; the denoiser's
+    scanned blocks unstacked, its gate and filter convs concatenated into
+    one 2C-out ``conv_layer``)."""
+    sd = {}
+
+    def t(w):
+        return np.ascontiguousarray(np.asarray(w).T)
+
+    def conv(w):
+        return np.ascontiguousarray(np.asarray(w).transpose(2, 1, 0))
+
+    def dense1x1(w):
+        return t(w)[:, :, None]
+
+    def ln(key, p):
+        sd[key + ".weight"], sd[key + ".bias"] = p["scale"], p["bias"]
+
+    def stack(prefix, p, n):
+        for i in range(n):
+            sd[f"{prefix}conv.{i}.1.weight"] = conv(p[f"conv_{i}"]["kernel"])
+            sd[f"{prefix}conv.{i}.1.bias"] = p[f"conv_{i}"]["bias"]
+            ln(f"{prefix}conv.{i}.3", p[f"ln_{i}"])
+
+    def linear(key, p):
+        sd[key + ".weight"] = t(p["kernel"])
+        if "bias" in p:
+            sd[key + ".bias"] = p["bias"]
+
+    def predictor(prefix, p, n):
+        sd[prefix + "pos_embed_alpha"] = p["pos"]["alpha"]
+        stack(prefix, p["stack"], n)
+        linear(prefix + "linear", p["proj"])
+
+    cond = "duration_pitch_energy_net."
+    enc, pre = params["encoder"], cond + "text_encoder."
+    sd[pre + "embed_tokens.weight"] = enc["tok_embed"]["embedding"]
+    ln(pre + "layer_norm", enc["ln_out"])
+    for i in range(cfg.model.transformer.encoder_layer):
+        b, p = enc[f"block_{i}"], f"{pre}layers.{i}.op."
+        ln(p + "layer_norm1", b["ln_attn"])
+        sd[p + "self_attn.in_proj_weight"] = t(b["attn"]["qkv"]["kernel"])
+        sd[p + "self_attn.out_proj.weight"] = t(b["attn"]["out"]["kernel"])
+        ln(p + "layer_norm2", b["ln_ffn"])
+        sd[p + "ffn.ffn_1.weight"] = conv(b["ffn"]["conv"]["kernel"])
+        sd[p + "ffn.ffn_1.bias"] = b["ffn"]["conv"]["bias"]
+        linear(p + "ffn.ffn_2", b["ffn"]["proj"])
+
+    va, pre = params["variance_adaptor"], cond + "variance_adaptor."
+    vp = cfg.model.variance_predictor
+    stack(pre + "duration_predictor.", va["duration_predictor"]["stack"],
+          vp.dur_predictor_layers)
+    linear(pre + "duration_predictor.linear", va["duration_predictor"]["proj"])
+    if "pitch_embed" in va:
+        sd[pre + "pitch_embed.weight"] = va["pitch_embed"]["embedding"]
+    if "cwt_in" in va:
+        linear(pre + "cwt_predictor.0", va["cwt_in"])
+        predictor(pre + "cwt_predictor.1.", va["cwt_predictor"],
+                  vp.predictor_layers)
+        for j in (0, 2, 4):
+            linear(pre + f"cwt_stats_layers.{j}",
+                   va["cwt_stats"][f"layers_{j}"])
+    if "pitch_predictor" in va:
+        predictor(pre + "pitch_predictor.", va["pitch_predictor"],
+                  vp.predictor_layers)
+    if "energy_predictor" in va:
+        predictor(pre + "energy_predictor.", va["energy_predictor"],
+                  vp.predictor_layers)
+        sd[pre + "energy_embedding.weight"] = va["energy_embed"]["embedding"]
+
+    den, pre = params["denoiser"], "net."
+    blocks = den["blocks"]
+    for i in range(cfg.model.denoiser.residual_layers):
+        p = f"{pre}residual_layers.{i}."
+        sd[p + "diffusion_projection.linear.weight"] = t(
+            blocks["t_proj"]["kernel"][i])
+        sd[p + "conditioner_projection.conv.weight"] = dense1x1(
+            blocks["cond_proj"]["kernel"][i])
+        sd[p + "conditioner_projection.conv.bias"] = \
+            blocks["cond_proj"]["bias"][i]
+        sd[p + "conv_layer.conv.weight"] = conv(np.concatenate(
+            [blocks["conv_gate"]["kernel"][i],
+             blocks["conv_filt"]["kernel"][i]], axis=-1))
+        sd[p + "conv_layer.conv.bias"] = np.concatenate(
+            [blocks["conv_gate"]["bias"][i], blocks["conv_filt"]["bias"][i]])
+        sd[p + "output_projection.conv.weight"] = dense1x1(
+            blocks["out_proj"]["kernel"][i])
+        sd[p + "output_projection.conv.bias"] = blocks["out_proj"]["bias"][i]
+        if "spk_proj" in blocks:
+            sd[p + "speaker_projection.linear.weight"] = t(
+                blocks["spk_proj"]["kernel"][i])
+    sd[pre + "input_projection.0.conv.weight"] = dense1x1(
+        den["in_proj"]["kernel"])
+    sd[pre + "input_projection.0.conv.bias"] = den["in_proj"]["bias"]
+    sd[pre + "mlp.0.linear.weight"] = t(den["mlp_in"]["kernel"])
+    sd[pre + "mlp.2.linear.weight"] = t(den["mlp_out"]["kernel"])
+    for name in ("skip_projection", "output_projection"):
+        key = "skip_proj" if name == "skip_projection" else "out_proj"
+        sd[f"{pre}{name}.conv.weight"] = dense1x1(den[key]["kernel"])
+        sd[f"{pre}{name}.conv.bias"] = den[key]["bias"]
+    if "speaker_emb" in params:
+        sd[cond + "speaker_emb.weight"] = params["speaker_emb"]["embedding"]
+    if "speaker_proj" in params:
+        linear(cond + "speaker_emb", params["speaker_proj"])
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def weight_norm_split(w, rs):
+    """(weight_g, weight_v) with weight_g * v / ||v|| == w over all but the
+    first axis (torch's weight norm), v a random rescaling of w per row."""
+    w = np.asarray(w, np.float32)
+    v = w * rs.uniform(0.5, 2.0, (w.shape[0],) + (1,) * (w.ndim - 1))
+    g = np.sqrt((w ** 2).sum(axis=tuple(range(1, w.ndim)), keepdims=True))
+    return g.astype(np.float32), v.astype(np.float32)
+
+
+def hifigan_reference_state_dict(gen, seed: int = 0):
+    """The reference ``generator_*.pth.tar`` ``["generator"]`` state dict of
+    a port ``HiFiGANGenerator`` (names ``conv_pre``, ``ups.i``,
+    ``resblocks.r.convs{1,2}.c``, ``conv_post``), every conv weight-normed
+    (``weight_g`` / ``weight_v``)."""
+    import torch
+
+    c = gen.cfg
+    rs = np.random.RandomState(seed)
+    names = {"conv_pre": "conv_pre", "conv_post": "conv_post"}
+    n_k = len(c.resblock_kernel_sizes)
+    for i in range(len(c.upsample_rates)):
+        names[f"up_{i}"] = f"ups.{i}"
+        for j in range(n_k):
+            for p in range(len(c.resblock_dilation_sizes[j])):
+                for a in (1, 2):
+                    names[f"res_{i}_{j}.conv{a}_{p}"] = \
+                        f"resblocks.{i * n_k + j}.convs{a}.{p}"
+    sd = {}
+    for mod, ref in names.items():
+        conv = gen.get_submodule(mod)
+        g, v = weight_norm_split(conv.weight.detach().numpy(), rs)
+        sd[ref + ".weight_g"] = torch.from_numpy(g)
+        sd[ref + ".weight_v"] = torch.from_numpy(v)
+        sd[ref + ".bias"] = conv.bias.detach().clone()
+    return sd
+
+
+def melgan_reference_module(cfg, seed: int = 0):
+    """The melgan-neurips Generator (``model`` an ``nn.Sequential``, every
+    conv weight-normed) built from its published architecture, random
+    weights from ``seed`` (the construction of ``tests/test_melgan.py``)."""
+    import torch
+    import torch.nn as tnn
+    from torch.nn.utils import weight_norm
+
+    def wn_conv(*a, **k):
+        return weight_norm(tnn.Conv1d(*a, **k))
+
+    class ResnetBlock(tnn.Module):
+        def __init__(self, dim, dilation):
+            super().__init__()
+            self.block = tnn.Sequential(
+                tnn.LeakyReLU(0.2), tnn.ReflectionPad1d(dilation),
+                wn_conv(dim, dim, 3, dilation=dilation),
+                tnn.LeakyReLU(0.2), wn_conv(dim, dim, 1))
+            self.shortcut = wn_conv(dim, dim, 1)
+
+        def forward(self, x):
+            return self.shortcut(x) + self.block(x)
+
+    torch.manual_seed(seed)
+    mult = 2 ** len(cfg.ratios)
+    model = [tnn.ReflectionPad1d(3), wn_conv(cfg.num_mels, mult * cfg.ngf, 7)]
+    for r in cfg.ratios:
+        model += [tnn.LeakyReLU(0.2),
+                  weight_norm(tnn.ConvTranspose1d(
+                      mult * cfg.ngf, mult * cfg.ngf // 2, r * 2, stride=r,
+                      padding=r // 2 + r % 2, output_padding=r % 2))]
+        for j in range(cfg.n_residual_layers):
+            model += [ResnetBlock(mult * cfg.ngf // 2, 3 ** j)]
+        mult //= 2
+    model += [tnn.LeakyReLU(0.2), tnn.ReflectionPad1d(3),
+              wn_conv(cfg.ngf, 1, 7), tnn.Tanh()]
+
+    class Generator(tnn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = tnn.Sequential(*model)
+
+        def forward(self, mel):
+            """(B, n_mels, T) log10 mel -> (B, 1, T * hop)."""
+            return self.model(mel)
+
+    return Generator().eval()
