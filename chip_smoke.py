@@ -75,7 +75,24 @@ exits non-zero):
      launches and a plain last stage, against the plain V2 generator),
      with MelGAN (card vs CPU) and with ``--lang zh``.  Its numbers go on
      a ``{"serve": {...}}`` line.
-  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6, 7 and 8),
+  9. the vocoder and speaker-encoder trainers under
+     ``build/chip_smoke_trainers/`` (removed at the end): an 8-speaker
+     formant corpus from ``cli.gen_corpus`` (6 under ``raw/``); one f32
+     HiFi-GAN GAN step (B=2 x 8192, generator width 128, discriminators
+     / 4) and one GE2E step (S=4 x U=4) on the card against the CPU;
+     timed f32 steps at the published sizes (HiFi-GAN V1 with the paper's
+     MPD + MSD at B=16 x 8192: median ms, the D and G halves, peak
+     memory, TFLOP/s of its convolutions, a ``torch.profiler`` busy
+     share; GE2E at 64 x 10 partials of 160 x 40); ``cli.train_hifigan``
+     to step 4, ``--resume`` to 6 (the saved state equal to the run's),
+     2 paired fine-tuning steps from the exported generator; that
+     generator through ``load_hifigan`` into a bf16 ``Synthesizer`` at
+     B=8 (MRF launches [3, 1], the wav against its plain path);
+     ``cli.train_ge2e`` with 2 held-out speakers and its
+     ``ge2e_params.npy`` through ``PreDefinedEmbedder``.  Its numbers go
+     on a ``{"trainers": {...}}`` line.
+  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6, 7, 8 and
+     9),
      the card's name and power limit, and a last line
      ``{"ok": true, "device": {...}}``.
 
@@ -86,6 +103,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1667,6 +1685,501 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
     return out
 
 
+# -- phase 9: the vocoder and speaker-encoder trainers ----------------------
+
+def adam_step_errs(name, got: dict, ref: dict, lr: float) -> dict:
+    """Card vs CPU after one Adam step of rate ``lr`` from the same state,
+    each side ``{"params", "mu"}`` (dicts of tensors).  The gradients,
+    through the first moments (mu = (1 - b1) g): all of them within 1e-2
+    of their norm in L2, and each tensor within 1e-1 of its own plus 1e-4
+    of all of them (a wrong gradient is off by its whole size).  Single entries differ by up to
+    2.5e-3 of their tensor's largest on the H100, and a WNConv's ``g``
+    gradient, the dot product of its kernel's gradient with v / ||v||,
+    cancels to 1.4e-2 of its norm: cuDNN's f32 algorithms sum otherwise,
+    and an argument within a rounding of a kink (leaky ReLU, |.| in the
+    L1 losses, the log-mel clamp) may fall on the other side.  The params
+    within 2 lr (a step moves an entry by about lr whatever its
+    gradient's size, so a near-zero gradient of the other sign puts it
+    2 lr away).  -> max |err| of the params, the relative L2 error of all
+    of mu and the largest of one tensor's, and how many param entries are
+    beyond lr / 100."""
+    import torch
+
+    out = {"params": 0.0, "mu_rel_l2": 0.0, "mu_rel_l2_worst_tensor": 0.0,
+           "params_beyond_lr_over_100": 0}
+    pairs = {k: (got["mu"][k].detach().cpu().double(),
+                 r.detach().cpu().double()) for k, r in ref["mu"].items()}
+    norm = float(sum((r ** 2).sum() for _, r in pairs.values())) ** 0.5
+    err = 0.0
+    for k, (g, r) in pairs.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name} mu {k}: non-finite")
+        e, n = float((g - r).norm()), float(r.norm())
+        err += e * e
+        # a gradient that is 0 but for rounding (GE2E's sim_bias: the
+        # softmax rows sum to 1) is held to the whole gradient's scale
+        if e > 1e-1 * n + 1e-4 * norm:
+            raise AssertionError(f"{name} mu {k}: L2 error {e} of {n}")
+        if n > 1e-4 * norm:
+            out["mu_rel_l2_worst_tensor"] = max(
+                out["mu_rel_l2_worst_tensor"], e / n)
+    out["mu_rel_l2"] = err ** 0.5 / norm
+    if out["mu_rel_l2"] > 1e-2:
+        raise AssertionError(f"{name} mu: relative L2 error "
+                             f"{out['mu_rel_l2']}")
+    for k, r in ref["params"].items():
+        g, r = got["params"][k].detach().cpu(), r.detach().cpu()
+        out["params"] = max(out["params"], check(
+            f"{name} params {k}", g, r, dict(rtol=0, atol=2 * lr)))
+        out["params_beyond_lr_over_100"] += int(
+            ((g - r).abs() > lr / 100).sum())
+    return out
+
+
+def to_device(tree, dev):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
+def timed_steps(fn, batches, warm: int = 2) -> dict:
+    """Median ms (CUDA events) of ``fn(batch)`` over ``batches`` after
+    ``warm`` warm-ups, steps/s and peak GiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i, b in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(b)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warm:
+            ms.append(start.elapsed_time(end))
+    med = statistics.median(ms)
+    return {"median_ms": med, "steps_per_s": 1e3 / med, "ms": ms,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def hifigan_halves(step, gen, disc, stft, cfg, state, wavs) -> dict:
+    """One GAN step split with CUDA events into the D half (G forward, D
+    on real and detached fake, D update) and the G half (D on real and
+    fake through the updated D, the mel loss, G backward and update),
+    composed of the step's own pieces; its losses are checked against
+    ``step``'s."""
+    import torch
+    from torch.func import functional_call
+
+    from cmtts_tpu_torch.models.hifigan_disc import (
+        discriminator_loss,
+        feature_matching_loss,
+        generator_adv_loss,
+    )
+    from cmtts_tpu_torch.train.hifigan_trainer import make_optims
+
+    tx_g, tx_d = make_optims(cfg)
+    n = wavs.shape[1] // gen.cfg.hop_length
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    with torch.no_grad():
+        mels = stft.mel_frames(wavs, n)
+    gp = {k: v.detach().requires_grad_(True) for k, v in state["gen"].items()}
+    y_hat = functional_call(gen, gp, (mels,))
+    dp = {k: v.detach().requires_grad_(True)
+          for k, v in state["disc"].items()}
+    d_loss = discriminator_loss(functional_call(disc, dp, (wavs,)),
+                                functional_call(disc, dp, (y_hat.detach(),)))
+    d_grads = torch.autograd.grad(d_loss, list(dp.values()))
+    new_d, _ = tx_d.update(dict(zip(dp, d_grads)), state["opt_d"],
+                           state["disc"])
+    ev[1].record()
+    with torch.no_grad():
+        real = functional_call(disc, new_d, (wavs,))
+    fake = functional_call(disc, new_d, (y_hat,))
+    g_loss = (generator_adv_loss(fake)
+              + cfg.lambda_fm * feature_matching_loss(real, fake)
+              + cfg.lambda_mel * (stft.mel_frames(y_hat, n) - mels).abs()
+              .mean())
+    g_grads = torch.autograd.grad(g_loss, list(gp.values()))
+    tx_g.update(dict(zip(gp, g_grads)), state["opt_g"], state["gen"])
+    ev[2].record()
+    torch.cuda.synchronize()
+    _, m = step(state, wavs)
+    check("split step's losses vs the step's",
+          torch.stack([d_loss.detach(), g_loss.detach()]).cpu(),
+          torch.stack([m["d_loss"], m["g_loss"]]).cpu(),
+          dict(rtol=1e-3, atol=1e-3))
+    return {"d_half_ms": ev[0].elapsed_time(ev[1]),
+            "g_half_ms": ev[1].elapsed_time(ev[2])}
+
+
+def hifigan_step_flop(gen, disc, B: int, T: int) -> int:
+    """FLOP of the convolutions of one GAN step at B x T samples, from the
+    modules' layer shapes, with g and d the FLOP of one G and one D
+    forward: G forward (g) and backward (2 g); D on real and fake (2 d)
+    and backward into both its weights and inputs (4 d); through the
+    updated D, real without grad (d), fake (d) and its input gradient
+    (d): 3 g + 9 d."""
+    import torch
+
+    from cmtts_tpu_torch.models.hifigan_disc import WNConv
+
+    def conv_flop(module, x):
+        total = 0
+
+        def hook(m, inp, out):
+            nonlocal total
+            if isinstance(m, torch.nn.ConvTranspose1d):
+                # each input sample meets the whole (Cin, Cout, k) kernel
+                total += 2 * inp[0].numel() // inp[0].shape[1] \
+                    * m.weight.numel()
+            elif isinstance(m, (torch.nn.Conv1d, WNConv)):
+                w = m.v if isinstance(m, WNConv) else m.weight
+                total += 2 * out.numel() // out.shape[1] * w.numel()
+
+        hooks = [m.register_forward_hook(hook) for m in module.modules()]
+        with torch.no_grad():
+            module(x)
+        for h in hooks:
+            h.remove()
+        return total
+
+    dev = next(gen.parameters()).device
+    g = conv_flop(gen, torch.zeros(B, T // gen.cfg.hop_length,
+                                   gen.cfg.num_mels, device=dev))
+    d = conv_flop(disc, torch.zeros(B, T, device=dev))
+    return 3 * g + 9 * d
+
+
+def trainers_phase(counters, root: str, device: str = "cuda",
+                   tiny: bool = False) -> dict:
+    """Phase 9: the vocoder and speaker-encoder trainers on ``device``,
+    under ``build/chip_smoke_trainers`` (removed at the end): a
+    multi-speaker formant corpus from ``cli.gen_corpus``; one HiFi-GAN
+    GAN step and one GE2E step on the card against the CPU; timed steps
+    at the published sizes; ``cli.train_hifigan`` (train, resume, paired
+    fine-tuning) and ``cli.train_ge2e``; the trained generator vocoding
+    through the MRF kernels, and the trained encoder embedding through
+    ``PreDefinedEmbedder``.  ``tiny`` (a CPU rehearsal) narrows every
+    model.  Returns the readings and the MRF launches; raises on any
+    failure."""
+    import dataclasses
+    import shutil
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from cmtts_tpu_torch.audio.stft import MelSpectrogram
+    from cmtts_tpu_torch.audio.wavio import read_wav
+    from cmtts_tpu_torch.cli.gen_corpus import main as gen_corpus
+    from cmtts_tpu_torch.cli.synthesize import random_cmtts
+    from cmtts_tpu_torch.cli.train_ge2e import main as train_ge2e_cli
+    from cmtts_tpu_torch.cli.train_hifigan import disc_config
+    from cmtts_tpu_torch.cli.train_hifigan import main as train_hifigan_cli
+    from cmtts_tpu_torch.core.config import load_configs
+    from cmtts_tpu_torch.models.hifigan import HiFiGANConfig, load_hifigan
+    from cmtts_tpu_torch.models.speaker import (
+        PreDefinedEmbedder,
+        ge2e_from_checkpoint,
+    )
+    from cmtts_tpu_torch.pipeline import Synthesizer
+    from cmtts_tpu_torch.train.ge2e_trainer import (
+        GE2ETrainConfig,
+        SpeakerVerificationDataset,
+        init_ge2e_train,
+        make_ge2e_train_step,
+    )
+    from cmtts_tpu_torch.train.hifigan_trainer import (
+        HiFiGANTrainConfig,
+        WaveSegmentSampler,
+        init_hifigan_train,
+        load_hifigan_train_state,
+        make_hifigan_train_step,
+    )
+
+    log("# phase 9: the vocoder and speaker-encoder trainers (formant "
+        "corpus, flax-like init)")
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    work = os.path.join(root, "build", "chip_smoke_trainers")
+    shutil.rmtree(work, ignore_errors=True)
+    out, walls = {}, {}
+    for fn in counters:
+        fn.launches = 0
+
+    # 1. the corpus: 8 speakers x 12 utterances, 2 held out
+    t0 = time.perf_counter()
+    gen_corpus(["--out", os.path.join(work, "corpus"), "--speakers", "8",
+                "--utts_per_speaker", "12", "--holdout", "2"])
+    raw = os.path.join(work, "corpus", "raw")
+    speakers = sorted(d for d in os.listdir(raw)
+                      if os.path.isdir(os.path.join(raw, d)))
+    walls["corpus_s"] = time.perf_counter() - t0
+    log(f"  corpus: {len(speakers)} speakers under raw/ "
+        f"({sum(len(os.listdir(os.path.join(raw, s))) // 2 for s in speakers)}"
+        f" utterances) in {walls['corpus_s']:.1f} s")
+
+    # 2. one f32 GAN step at B=2, card vs CPU, from the same weights/crop
+    seg = 2048 if tiny else 8192
+    cfg2 = HiFiGANTrainConfig(segment_size=seg, batch_size=2)
+    small = HiFiGANConfig(upsample_initial_channel=32 if tiny else 128)
+    sampler = WaveSegmentSampler(raw, seg)
+    wavs2 = torch.from_numpy(sampler.sample(np.random.RandomState(0), 2))
+    res = {}
+    for name, on in (("cpu", torch.device("cpu")), ("card", dev)):
+        state, gen, disc = init_hifigan_train(
+            cfg2, small, disc_config(16 if tiny else 4), "cpu")
+        gen, disc, state = gen.to(on), disc.to(on), to_device(state, on)
+        step = make_hifigan_train_step(
+            gen, disc, MelSpectrogram(device=on), cfg2)
+        t0 = time.perf_counter()
+        res[name] = step(state, wavs2.to(on))
+        if on.type == "cuda":
+            torch.cuda.synchronize()
+        walls[f"gan_step_b2_{name}_s"] = time.perf_counter() - t0
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = res["cpu"], res["card"]
+    errs = {k: check(f"GAN step {k}, card vs CPU", m_gpu[k].cpu(), m_cpu[k],
+                     TRAIN_F32_TOL) for k in m_cpu}
+    for which in ("gen", "disc"):
+        errs[which] = adam_step_errs(
+            f"GAN step {which}, card vs CPU,",
+            *({"params": s[which], "mu": s[f"opt_{which[0]}"]["mu"]}
+              for s in (s_gpu, s_cpu)), cfg2.learning_rate)
+    out["gan_card_vs_cpu_max_abs_err"] = errs
+    log(f"  HiFi-GAN f32 step B=2 x {seg} (generator width "
+        f"{small.upsample_initial_channel}, discriminators / "
+        f"{16 if tiny else 4}), card vs CPU max |err|: "
+        + ", ".join(f"{k} {v}" for k, v in errs.items())
+        + f"; CPU {walls['gan_step_b2_cpu_s']:.1f} s")
+    del res, s_cpu, s_gpu
+
+    # 3. the published sizes: V1 + paper MPD/MSD, B=16 x 8192, f32
+    B = 2 if tiny else 16
+    cfg = HiFiGANTrainConfig(segment_size=seg, batch_size=B)
+    state, gen, disc = init_hifigan_train(
+        cfg, small if tiny else HiFiGANConfig(),
+        disc_config(16 if tiny else 1), dev)
+    stft = MelSpectrogram(device=dev)
+    step = make_hifigan_train_step(gen, disc, stft, cfg)
+    rng = np.random.RandomState(1)
+    batches = [torch.from_numpy(sampler.sample(rng, B)).to(dev)
+               for _ in range(12)]
+    hold = {"state": state}
+
+    def gan_step(wavs):
+        hold["state"], hold["m"] = step(hold["state"], wavs)
+
+    if cuda:
+        t = timed_steps(gan_step, batches)
+        t["tflop_per_step"] = hifigan_step_flop(gen, disc, B, seg) / 1e12
+        t["tflops"] = t["tflop_per_step"] * 1e3 / t["median_ms"]
+        t["split_ms"] = hifigan_halves(step, gen, disc, stft, cfg,
+                                       hold["state"], batches[-1])
+        t["profile"] = device_busy(lambda: step(hold["state"], batches[-1]))
+        losses = {k: float(v) for k, v in hold["m"].items()}
+        if not all(np.isfinite(list(losses.values()))):
+            raise AssertionError(f"GAN losses {losses}")
+        t["last_losses"] = losses
+        out["gan_published"] = t
+        log(f"  HiFi-GAN V1 + paper MPD/MSD, f32 B={B} x {seg}: median "
+            f"{t['median_ms']:.1f} ms/step ({t['steps_per_s']:.2f} steps/s)"
+            f" over {len(t['ms'])} steps; D half {t['split_ms']['d_half_ms']:.1f}"
+            f" ms, G half {t['split_ms']['g_half_ms']:.1f} ms; peak "
+            f"{t['peak_mem_gib']:.2f} GiB; convolutions "
+            f"{t['tflop_per_step']:.2f} TFLOP a step = {t['tflops']:.1f} "
+            f"TFLOP/s; profiled: {t['profile']}; losses {losses}")
+    else:
+        gan_step(batches[0])
+    del state, gen, disc, step, batches, hold
+
+    # 4. cli.train_hifigan: train to 4, resume to 6, two paired steps
+    hw = os.path.join(work, "hifigan")
+    flags = ["--wav_root", raw, "--log_every", "1", "--device", device]
+    if tiny:
+        flags += ["--upsample_initial_channel", "32", "--disc_scale", "16",
+                  "--segment_size", str(seg), "--batch_size", "2"]
+    t0 = time.perf_counter()
+    s4 = train_hifigan_cli(flags + ["--work_dir", hw, "--total_steps", "4",
+                                    "--save_every", "2"])
+    walls["cli_train_to_4_s"] = time.perf_counter() - t0
+    restored, _ = load_hifigan_train_state(hw, dev)
+    trees = [(s4[w], restored[w]) for w in ("gen", "disc")] + [
+        (s4[o][m], restored[o][m]) for o in ("opt_g", "opt_d")
+        for m in ("mu", "nu")]
+    if (restored["step"] != 4 or restored["opt_g"]["count"] != 4
+            or not all(torch.equal(a[k], b[k]) for a, b in trees for k in a)):
+        raise AssertionError("the saved trainer state differs from the run's")
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with redirect_stdout(tee):
+        s6 = train_hifigan_cli(flags + ["--work_dir", hw, "--total_steps",
+                                        "6", "--save_every", "2",
+                                        "--resume"])
+    walls["cli_resume_to_6_s"] = time.perf_counter() - t0
+    if ("resumed hifigan trainer at step 4" not in tee.text()
+            or s6["step"] != 6 or "hifigan step 5:" not in tee.text()):
+        raise AssertionError("cli.train_hifigan did not resume from step 4")
+    gen_npz = os.path.join(hw, "hifigan_gen_00000006.npz")
+    mel_dir = os.path.join(work, "mels")
+    os.makedirs(mel_dir)
+    front = MelSpectrogram(device=dev)
+    names = sorted(n for n in os.listdir(os.path.join(raw, speakers[0]))
+                   if n.endswith(".wav"))
+    for name in names[:8]:
+        wav, _ = read_wav(os.path.join(raw, speakers[0], name))
+        mel, _ = front(wav)
+        np.save(os.path.join(mel_dir, name[:-4] + "-mel.npy"), mel.T)
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with redirect_stdout(tee):
+        s_ft = train_hifigan_cli(flags + [
+            "--work_dir", os.path.join(work, "finetune"), "--total_steps",
+            "2", "--finetune_mel_dir", mel_dir, "--init_gen_npz", gen_npz])
+    walls["cli_finetune_2_s"] = time.perf_counter() - t0
+    if "generator warm-started" not in tee.text() or s_ft["step"] != 2:
+        raise AssertionError("paired fine-tuning did not run")
+    cli_losses = [float(x.split("g_loss=")[1].split()[0])
+                  for x in tee.text().splitlines() if "g_loss=" in x]
+    if len(cli_losses) != 2 or not np.isfinite(cli_losses).all():
+        raise AssertionError(f"fine-tuning losses {cli_losses}")
+    log(f"  cli.train_hifigan: train to 4 {walls['cli_train_to_4_s']:.1f} s,"
+        f" --resume to 6 {walls['cli_resume_to_6_s']:.1f} s (the saved "
+        f"state equal to the run's, resumed at 4), 2 paired fine-tuning "
+        f"steps from hifigan_gen_00000006.npz on {len(os.listdir(mel_dir))} "
+        f"<base>-mel.npy files {walls['cli_finetune_2_s']:.1f} s (g_loss "
+        f"{np.round(cli_losses, 3).tolist()})")
+    del s4, s6, s_ft, restored, trees
+
+    # 5. the trained generator through the MRF kernels (phase 3's CM)
+    lj = load_configs("LJSpeech")
+    trained = load_hifigan(gen_npz, lj)
+    cm = random_cmtts(lj, seed=1)
+    synth = Synthesizer(lj, cm, trained, T=1, device=device)
+    seqs = [np.random.RandomState(i).randint(13, 140, 96 if cuda else 12)
+            .astype(np.int32) for i in range(8)]
+    before = [fn.launches for fn in counters]
+    mel, lens, wav = synth(seqs, mel_bucket=1024 if cuda else 128)
+    rose = [fn.launches - b for fn, b in zip(counters, before)]
+    if cuda and rose != [3, 1]:
+        raise AssertionError(f"trained generator: MRF launches {rose}")
+    with torch.no_grad():
+        plain = trained.to(dev)(torch.from_numpy(mel).to(dev)).cpu()
+    out["trained_vocoder_err_vs_plain"] = check(
+        "trained generator, bf16 kernels vs its plain f32 path",
+        torch.from_numpy(wav), plain, BF16_TOL)
+    out["trained_vocoder_routes"] = synth.vocoder_packed.routes
+    log(f"  hifigan_gen_00000006.npz -> load_hifigan -> Synthesizer (bf16) "
+        f"B=8 mel {mel.shape[1]}: MRF launches {rose}, routes "
+        f"{out['trained_vocoder_routes']}; wav vs the plain generator "
+        f"{out['trained_vocoder_err_vs_plain']:.3e}")
+    del synth, cm, trained
+
+    # 6. GE2E: one step at S=4, U=4, card vs CPU, on the corpus's partials
+    parts = os.path.join(work, "partials")
+    n_parts = SpeakerVerificationDataset.prepare_from_wavs(raw, parts)
+    ds = SpeakerVerificationDataset(parts)
+    mels4 = torch.from_numpy(ds.sample_batch(np.random.RandomState(0), 4,
+                                             4)[0])
+    lr = GE2ETrainConfig().learning_rate
+    res = {}
+    for name, on in (("cpu", torch.device("cpu")), ("card", dev)):
+        model, params, tx, opt = init_ge2e_train(0, lr, "cpu")
+        model, params, opt = (model.to(on), to_device(params, on),
+                              to_device(opt, on))
+        st = make_ge2e_train_step(model, tx, 4, 4, GE2ETrainConfig())
+        res[name] = st(params, opt, mels4.to(on))
+    (p_cpu, o_cpu, l_cpu, g_cpu), (p_gpu, o_gpu, l_gpu, g_gpu) = \
+        res["cpu"], res["card"]
+    gerrs = {"loss": check("GE2E loss, card vs CPU", l_gpu.cpu(), l_cpu,
+                           TRAIN_F32_TOL),
+             "gnorm": check("GE2E grad norm, card vs CPU", g_gpu.cpu(),
+                            g_cpu, TRAIN_F32_TOL),
+             **adam_step_errs("GE2E, card vs CPU,",
+                              {"params": p_gpu, "mu": o_gpu["mu"]},
+                              {"params": p_cpu, "mu": o_cpu["mu"]},
+                              lr)}
+    out["ge2e_card_vs_cpu_max_abs_err"] = gerrs
+    log(f"  GE2E f32 step S=4 x U=4 on {n_parts} corpus partials, card vs "
+        f"CPU max |err|: " + ", ".join(f"{k} {v}"
+                                        for k, v in gerrs.items()))
+    del res
+
+    # 7. the published GE2E step: S=64 x U=10 x 160 x 40 seeded partials
+    S, U = (8, 4) if tiny else (64, 10)
+    model, params, tx, opt = init_ge2e_train(0, lr, dev)
+    st = make_ge2e_train_step(model, tx, S, U, GE2ETrainConfig())
+    g = torch.Generator(device=dev).manual_seed(0)
+    gbatches = [torch.rand(S * U, 160, 40, device=dev, generator=g)
+                for _ in range(12)]
+    hold = {"p": params, "o": opt}
+
+    def ge2e_step(mels):
+        hold["p"], hold["o"], hold["loss"], _ = st(hold["p"], hold["o"],
+                                                   mels)
+
+    if cuda:
+        t = timed_steps(ge2e_step, gbatches)
+        t["last_loss"] = float(hold["loss"])
+        if not np.isfinite(t["last_loss"]):
+            raise AssertionError(f"GE2E loss {t['last_loss']}")
+        out["ge2e_published"] = t
+        log(f"  GE2E S={S} x U={U} x 160 x 40, f32: median "
+            f"{t['median_ms']:.2f} ms/step ({t['steps_per_s']:.1f} steps/s) "
+            f"over {len(t['ms'])} steps; peak {t['peak_mem_gib']:.2f} GiB; "
+            f"loss {t['last_loss']:.4f}")
+    else:
+        ge2e_step(gbatches[0])
+    del model, params, opt, gbatches, hold
+
+    # 8. cli.train_ge2e with 2 held-out speakers, then the embedder
+    gw = os.path.join(work, "ge2e")
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with redirect_stdout(tee):
+        train_ge2e_cli(["--wav_root", raw, "--work_dir", gw, "--total_steps",
+                        "20", "--val_speakers", "2", "--eval_every", "10",
+                        "--log_every", "10", "--device", device])
+    walls["cli_ge2e_s"] = time.perf_counter() - t0
+    text = tee.text()
+    g_losses = [float(v) for v in re.findall(r"step \d+: loss=(\S+)", text)]
+    eers = [float(v) for v in re.findall(r"step \d+: val_eer=(\S+)", text)]
+    if (len(g_losses) != 2 or len(eers) != 2
+            or not np.isfinite(g_losses + eers).all()):
+        raise AssertionError(f"cli.train_ge2e: losses {g_losses}, EER {eers}")
+    ckpt = os.path.join(gw, "ge2e_params.npy")
+    ge2e_from_checkpoint(ckpt)
+    vctk = load_configs("VCTK")
+    vctk = dataclasses.replace(vctk, model=dataclasses.replace(
+        vctk.model, speaker_embedder="GE2E"))
+    emb = PreDefinedEmbedder(vctk, ckpt, device)(reference_wav(0))
+    if emb.shape != (256,) or not np.isfinite(emb).all() \
+            or abs(float(np.linalg.norm(emb)) - 1.0) > 1e-3:
+        raise AssertionError(f"GE2E embedding {emb.shape}")
+    out["ge2e_cli"] = {"losses": g_losses, "val_eer": eers}
+    log(f"  cli.train_ge2e --val_speakers 2, 20 steps: "
+        f"{walls['cli_ge2e_s']:.1f} s, loss {np.round(g_losses, 4).tolist()},"
+        f" val EER {np.round(eers, 4).tolist()}; ge2e_params.npy -> "
+        f"ge2e_from_checkpoint and PreDefinedEmbedder (GE2E): a 3 s wav -> "
+        f"{emb.shape[0]} features, norm {np.linalg.norm(emb):.4f}")
+
+    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    if cuda and min(out["launches"].values()) == 0:
+        raise AssertionError(f"a kernel never ran in phase 9: "
+                             f"{out['launches']}")
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    log(f"# phase 9 launches {out['launches']}, {walls['phase_s']:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1873,6 +2386,10 @@ def main() -> int:
     served = serve_phase(counters, os.path.dirname(os.path.abspath(__file__)),
                          results["B8_T1"])
 
+    # -- phase 9: the vocoder and speaker-encoder trainers -----------------
+    trainers = trainers_phase(counters,
+                              os.path.dirname(os.path.abspath(__file__)))
+
     # -- phase 4: summary lines --------------------------------------------
     src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
@@ -1888,12 +2405,14 @@ def main() -> int:
             "launches": (launches[name] + zero_shot["launches"][name]
                          + train["launches"][name]
                          + data["launches"][name]
-                         + served["launches"][name]),
+                         + served["launches"][name]
+                         + trainers["launches"][name]),
             "launches_by_phase": {"3": launches[name],
                                   "5": zero_shot["launches"][name],
                                   "6": train["launches"][name],
                                   "7": data["launches"][name],
-                                  "8": served["launches"][name]},
+                                  "8": served["launches"][name],
+                                  "9": trainers["launches"][name]},
             "design": "mma.sync bf16", "float32_design": "simt f32",
             "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
             "hmma_in_sass": hmma,
@@ -1914,6 +2433,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"data": data}))
     print(json.dumps({"serve": served}))
+    print(json.dumps({"trainers": trainers}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

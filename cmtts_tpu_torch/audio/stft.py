@@ -4,7 +4,9 @@
 ``mel_filterbank`` (the librosa/Slaney basis) and ``stft_magnitudes`` (the
 speaker embedders' host STFT) are host numpy, copied verbatim.
 ``MelSpectrogram`` and ``GriffinLim`` compute with torch on their device:
-``cuda`` unless the caller asks for another.
+``cuda`` unless the caller asks for another.  ``MelSpectrogram.mel_frames``
+is the batched, differentiable log-mel that the vocoder trainer's loss
+takes (the JAX trainer's vmapped ``make_mel_fn``).
 """
 
 from __future__ import annotations
@@ -147,6 +149,18 @@ class MelSpectrogram:
         mag = self.linear_magnitude(wav)
         mel = torch.log(torch.clamp(self._basis @ mag, min=1e-5))
         return mel, torch.linalg.vector_norm(mag, dim=0)
+
+    def mel_frames(self, wavs: torch.Tensor, n_frames: int) -> torch.Tensor:
+        """The log-mel of a batch, frames-major and cropped: wavs (B, T) ->
+        (B, n_frames, n_mels), the first ``n_frames`` frames of each
+        utterance's :meth:`mel_and_energy` mel, differentiable in
+        ``wavs``."""
+        pad = self.filter_length // 2
+        wavs = torch.nn.functional.pad(wavs[:, None], (pad, pad),
+                                       mode="reflect")[:, 0]
+        frames = wavs[:, self.frame_index(n_frames)] * self.window
+        mag = torch.fft.rfft(frames, n=self.filter_length, dim=-1).abs()
+        return torch.log(torch.clamp(mag @ self._basis.T, min=1e-5))
 
     def __call__(self, wav) -> tuple[np.ndarray, np.ndarray]:
         """numpy in, numpy out: (mel [n_mels, T], energy [T])."""

@@ -21,7 +21,14 @@ mechanical: ``a/b/c/<leaf>`` -> ``a.b.c.<name>``, with these layout rules:
   ``nn.LSTM`` called ``<name>``: its input kernels ``i{i,f,g,o}`` (no bias)
   stack into ``weight_ih_l<k>`` and its hidden kernels ``h{i,f,g,o}`` into
   ``weight_hh_l<k>``, rows in torch's gate order (i, f, g, o); the hidden
-  biases become ``bias_ih_l<k>`` and ``bias_hh_l<k>`` is 0.
+  biases become ``bias_ih_l<k>`` and ``bias_hh_l<k>`` is 0;
+- a weight-normalised conv (``WNConv``) keeps its leaves: ``v`` in the
+  flax kernel layout (k..., in/groups, out) -> (out, in/groups, k...),
+  ``g`` and ``bias`` as they are.
+
+:func:`state_dict_to_flax` is the inverse: a port module's parameters as
+the flax tree, every rule undone (an LSTM layer's two biases fold into the
+``h*`` biases, ``bias_ih + bias_hh``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from cmtts_tpu_torch.models.hifigan_disc import WNConv
 
 _GATES = "ifgo"
 
@@ -46,11 +55,20 @@ def _kernel(module: nn.Module, w: np.ndarray) -> np.ndarray:
         return w.T
     if isinstance(module, nn.ConvTranspose1d):
         return np.transpose(w[::-1], (1, 2, 0))
-    if isinstance(module, nn.Conv1d):
-        return np.transpose(w, (2, 1, 0))
-    if isinstance(module, nn.Conv2d):
-        return np.transpose(w, (3, 2, 0, 1))
+    if isinstance(module, (nn.Conv1d, nn.Conv2d, WNConv)):
+        # (k..., in, out) -> (out, in, k...)
+        return np.transpose(w, (w.ndim - 1, w.ndim - 2, *range(w.ndim - 2)))
     raise TypeError(f"no kernel rule for {type(module).__name__}")
+
+
+def _flax_kernel(module: nn.Module, w: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_kernel`."""
+    if isinstance(module, nn.Linear):
+        return w.T
+    if isinstance(module, nn.ConvTranspose1d):
+        return np.transpose(w, (2, 0, 1))[::-1]
+    # (out, in, k...) -> (k..., in, out)
+    return np.transpose(w, (*range(2, w.ndim), 1, 0))
 
 
 def _lstm_layer(model: nn.Module, cell_path: tuple):
@@ -88,14 +106,16 @@ def flax_to_state_dict(params: dict, model: nn.Module,
                         value[n])
                 return
         mod_name = ".".join(path)
-        if leaf == "kernel":
+        if leaf == "kernel" or (leaf == "v" and isinstance(
+                model.get_submodule(mod_name), WNConv)):
             value = _kernel(model.get_submodule(mod_name), value)
-            name = "weight"
+            name = "weight" if leaf == "kernel" else leaf
         elif leaf in ("scale", "embedding"):
             name = "weight"
         else:
             name = leaf
-        out[f"{mod_name}.{name}"] = torch.from_numpy(np.array(value))
+        key = f"{mod_name}.{name}" if mod_name else name
+        out[key] = torch.from_numpy(np.array(value))
 
     cells: dict[tuple, dict] = {}
     for path, value in _flatten(params):
@@ -134,3 +154,88 @@ def load_flax_params(model: nn.Module, params: dict,
     model.load_state_dict(flax_to_state_dict(params, model, batch_stats),
                           strict=True)
     return model
+
+
+def state_dict_to_flax(model: nn.Module,
+                       params: dict[str, torch.Tensor] | None = None) -> dict:
+    """The flax param tree (nested dicts of float32 numpy arrays) of
+    ``model``'s parameters, those named in ``params`` (by
+    ``named_parameters`` name) taken from there: :func:`flax_to_state_dict`
+    undone.  BatchNorm statistics, which flax keeps apart in
+    ``batch_stats``, are not params and are left out."""
+    params = {**dict(model.named_parameters()), **(params or {})}
+    tree: dict = {}
+    stacks: dict[tuple, dict[int, np.ndarray]] = {}
+
+    def put(path: tuple, value: np.ndarray):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(value)
+
+    def place(mod_path: tuple, rest: tuple, value: np.ndarray):
+        """Put the leaf ``rest`` of the module at ``mod_path``."""
+        for i in range(1, len(mod_path)):
+            if isinstance(model.get_submodule(".".join(mod_path[:i])),
+                          nn.ModuleList):
+                # a scanned stack: layer n is index n of a leading axis
+                flat = mod_path[:i] + mod_path[i + 1:] + rest
+                stacks.setdefault(flat, {})[int(mod_path[i])] = value
+                return
+        put(mod_path + rest, value)
+
+    def get(name: str) -> np.ndarray:
+        return params[name].detach().cpu().float().numpy()
+
+    for mod_name, m in model.named_modules():
+        prefix = tuple(mod_name.split(".")) if mod_name else ()
+        own = [n for n, _ in m.named_parameters(recurse=False)]
+        if not own:
+            continue
+        full = {n: f"{mod_name}.{n}" if mod_name else n for n in own}
+        if isinstance(m, nn.LSTM):
+            H = m.hidden_size
+            cell = prefix[:-1]
+            for k in range(m.num_layers):
+                w_ih, w_hh = get(full[f"weight_ih_l{k}"]), \
+                    get(full[f"weight_hh_l{k}"])
+                bias = get(full[f"bias_ih_l{k}"]) + get(full[f"bias_hh_l{k}"])
+                for g, gate in enumerate(_GATES):
+                    rows = slice(g * H, (g + 1) * H)
+                    at = (f"{prefix[-1]}_{k}",)
+                    place(cell, at + (f"i{gate}", "kernel"), w_ih[rows].T)
+                    place(cell, at + (f"h{gate}", "kernel"), w_hh[rows].T)
+                    place(cell, at + (f"h{gate}", "bias"), bias[rows])
+            continue
+        for n in own:
+            value = get(full[n])
+            leaf = n
+            if n == "weight" and isinstance(m, (nn.Linear, nn.Conv1d,
+                                                nn.Conv2d,
+                                                nn.ConvTranspose1d)):
+                value, leaf = _flax_kernel(m, value), "kernel"
+            elif n == "v" and isinstance(m, WNConv):
+                value = _flax_kernel(m, value)
+            elif n == "weight" and isinstance(m, nn.Embedding):
+                leaf = "embedding"
+            elif n == "weight":      # LayerNorm, BatchNorm
+                leaf = "scale"
+            place(prefix, (leaf,), value)
+    for path, layers in stacks.items():
+        put(path, np.stack([layers[n] for n in sorted(layers)]))
+    _fuse_qkv(tree)
+    return tree
+
+
+def _fuse_qkv(tree: dict):
+    """Fold sibling ``q``, ``k``, ``v`` Dense kernels (no biases) back into
+    the fused ``qkv`` (C, 3C) of the flax attention."""
+    for node in tree.values():
+        if isinstance(node, dict):
+            _fuse_qkv(node)
+    qkv = [tree.get(n) for n in "qkv"]
+    if all(isinstance(x, dict) and set(x) == {"kernel"} for x in qkv):
+        tree["qkv"] = {"kernel": np.concatenate([x["kernel"] for x in qkv],
+                                                axis=-1)}
+        for n in "qkv":
+            del tree[n]

@@ -19,6 +19,7 @@ from cmtts_tpu_torch.core.config import Config
 from cmtts_tpu_torch.core.masks import length_mask
 from cmtts_tpu_torch.models.denoiser import Denoiser
 from cmtts_tpu_torch.models.encoder import FFTEncoder
+from cmtts_tpu_torch.models.init import lecun_normal_
 from cmtts_tpu_torch.models.variance import VarianceAdaptor
 from cmtts_tpu_torch.text.symbols import VOCAB_SIZE
 
@@ -116,11 +117,6 @@ def init_like_flax(model: CMTTS, generator: torch.Generator) -> CMTTS:
     (the speaker table too) normal(H^-0.5) with row 0 zeroed for pitch and
     energy."""
 
-    def trunc(w, scale, fan_in):
-        std = (scale / fan_in) ** 0.5 / 0.87962566103423978
-        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
-
     with torch.no_grad():
         for name, m in model.named_modules():
             parent, _, leaf = name.rpartition(".")
@@ -139,9 +135,9 @@ def init_like_flax(model: CMTTS, generator: torch.Generator) -> CMTTS:
                 elif (name.startswith("denoiser")
                       or (leaf.startswith("conv_")
                           and parent.endswith("stack"))):
-                    trunc(w, 2.0, fan_in)
+                    lecun_normal_(w, fan_in, generator, 2.0)
                 else:
-                    trunc(w, 1.0, fan_in)
+                    lecun_normal_(w, fan_in, generator)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
             elif isinstance(m, nn.Embedding):

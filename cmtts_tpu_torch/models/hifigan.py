@@ -20,6 +20,8 @@ Layout is channels-first inside; the public layouts stay JAX's: mel
 Checkpoints: a flat ``a/b/c`` npz of flax params, or the reference's torch
 ``generator_*.pth.tar`` (``["generator"]``, weight norm folded) through the
 numpy converter copied from the JAX module (:func:`convert_torch_hifigan`).
+:func:`init_like_flax` draws fresh weights as the flax module's ``init``
+does, for ``train/hifigan_trainer.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cmtts_tpu_torch.convert import load_flax_params
+from cmtts_tpu_torch.models.init import lecun_normal_
 from cmtts_tpu_torch.ops.mrf import (
     fused_mrf_stage,
     fused_mrf_stage_streamed,
@@ -124,6 +127,22 @@ class HiFiGANGenerator(nn.Module):
             x = acc / n_res
         x = self.conv_post(F.leaky_relu(x, 0.01))
         return torch.tanh(x)[:, 0]
+
+
+@torch.no_grad()
+def init_like_flax(gen: HiFiGANGenerator,
+                   generator: torch.Generator) -> HiFiGANGenerator:
+    """Re-initialise ``gen`` in place as the JAX generator's ``init``
+    draws it: every conv and transposed-conv kernel LeCun-normal (the
+    transposed convs with flax's fan-in, in x k), every bias zero."""
+    for m in gen.modules():
+        if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
+            w = m.weight
+            fan_in = (w.shape[0] * w.shape[2]
+                      if isinstance(m, nn.ConvTranspose1d) else w[0].numel())
+            lecun_normal_(w, fan_in, generator)
+            nn.init.zeros_(m.bias)
+    return gen
 
 
 class GeneratorPack(NamedTuple):

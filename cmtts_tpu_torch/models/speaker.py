@@ -1,5 +1,5 @@
 """Speaker embedders for multi-speaker and zero-shot synthesis (port of
-``cmtts_tpu/models/speaker.py``, inference half):
+``cmtts_tpu/models/speaker.py``):
 
 - GE2E: 3-layer LSTM(40 -> 256) -> last hidden -> Linear(256) -> ReLU ->
   L2 norm; partial-utterance inference over overlapping 160-frame windows.
@@ -15,7 +15,9 @@ The reference formats load too, through numpy converters copied from the
 JAX module: GE2E's torch ``encoder.pt`` (``model_state``) and the in-repo
 GE2E trainer's ``.npy`` blob, DeepSpeaker's Keras ``.h5`` (``h5py``,
 imported on use).  Without a checkpoint the embedders warn and use random
-weights from a seed.  The GE2E loss is not ported here.
+weights from a seed.  The GE2E loss, which ``train/ge2e_trainer.py``
+trains the encoder with, is here too, and ``init_ge2e_like_flax``, its
+fresh weights as flax draws them.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from cmtts_tpu_torch.audio.stft import mel_filterbank, stft_magnitudes
 from cmtts_tpu_torch.convert import load_flax_params
 from cmtts_tpu_torch.core.device import resolve_device
 from cmtts_tpu_torch.models.hifigan import unflatten_npz
+from cmtts_tpu_torch.models.init import lecun_normal_
 
 GE2E_MEL_CHANNELS = 40
 GE2E_PARTIAL_FRAMES = 160
@@ -62,6 +65,59 @@ class GE2EEncoder(nn.Module):
         emb = torch.relu(self.proj(h[-1]))
         return emb / (torch.linalg.vector_norm(emb, dim=1, keepdim=True)
                       + 1e-5)
+
+
+def ge2e_similarity_matrix(embeds: torch.Tensor, weight, bias) -> torch.Tensor:
+    """Scaled GE2E similarity matrix (ge2e_encoder/model.py:63-105),
+    vectorised: each utterance against every speaker's centroid, its own
+    speaker's centroid taken without it.
+
+    embeds: (S, U, E) L2-normalised -> (S, U, S)
+    """
+    S, U, _ = embeds.shape
+    incl = embeds.mean(dim=1)
+    incl = incl / (torch.linalg.vector_norm(incl, dim=1, keepdim=True)
+                   + 1e-5)
+    excl = (embeds.sum(dim=1, keepdim=True) - embeds) / (U - 1)
+    excl = excl / (torch.linalg.vector_norm(excl, dim=2, keepdim=True)
+                   + 1e-5)
+    sim = torch.einsum("sue,ke->suk", embeds, incl)
+    own = torch.einsum("sue,sue->su", embeds, excl)
+    eye = torch.eye(S, dtype=torch.bool, device=embeds.device)[:, None, :]
+    sim = torch.where(eye, own[:, :, None], sim)
+    return sim * weight + bias
+
+
+def ge2e_loss(embeds: torch.Tensor, weight, bias) -> torch.Tensor:
+    """GE2E softmax loss (ge2e_encoder/model.py:107-123)."""
+    S, U, _ = embeds.shape
+    sim = ge2e_similarity_matrix(embeds, weight, bias).reshape(S * U, S)
+    target = torch.arange(S, device=embeds.device).repeat_interleave(U)
+    logp = torch.log_softmax(sim, dim=-1)
+    return -logp[torch.arange(S * U, device=embeds.device), target].mean()
+
+
+@torch.no_grad()
+def init_ge2e_like_flax(enc: GE2EEncoder,
+                        generator: torch.Generator) -> GE2EEncoder:
+    """Re-initialise ``enc`` in place as flax's ``OptimizedLSTMCell`` and
+    ``Dense`` draw the JAX encoder: each gate's input kernel LeCun-normal,
+    each gate's hidden kernel orthogonal (H x H), the projection
+    LeCun-normal, every bias zero."""
+    lstm = enc.lstm
+    H = lstm.hidden_size
+    for k in range(lstm.num_layers):
+        w_ih = getattr(lstm, f"weight_ih_l{k}")
+        w_hh = getattr(lstm, f"weight_hh_l{k}")
+        for gate in range(4):
+            rows = slice(gate * H, (gate + 1) * H)
+            lecun_normal_(w_ih[rows], w_ih.shape[1], generator)
+            nn.init.orthogonal_(w_hh[rows], generator=generator)
+        nn.init.zeros_(getattr(lstm, f"bias_ih_l{k}"))
+        nn.init.zeros_(getattr(lstm, f"bias_hh_l{k}"))
+    lecun_normal_(enc.proj.weight, enc.proj.in_features, generator)
+    nn.init.zeros_(enc.proj.bias)
+    return enc
 
 
 def compute_partial_slices(n_samples: int, partial_frames: int = GE2E_PARTIAL_FRAMES,

@@ -1,7 +1,9 @@
 """Train state (port of ``cmtts_tpu/train/state.py``): master params, the
 optimizer state, three EMA snapshots and the target network, each a dict
 ``{parameter name: tensor}`` in the order of ``model.named_parameters()``,
-and an RAdam that computes what ``optax.radam`` computes.
+and an RAdam that computes what ``optax.radam`` computes; beside it the
+AdamW and Adam of the vocoder and speaker-encoder trainers, as
+``optax.adamw`` and ``optax.adam`` compute them.
 
 ``torch.optim.RAdam`` is not used: it adds ``eps`` to sqrt(v) before the
 bias correction, where optax adds it to sqrt(v_hat), and it rectifies when
@@ -104,6 +106,77 @@ class RAdam:
         return (dict(zip(names, new_p)),
                 {"count": count, "mu": dict(zip(names, mu)),
                  "nu": dict(zip(names, nu))})
+
+
+def exponential_decay(init_value: float, transition_steps: int,
+                      decay_rate: float):
+    """``optax.exponential_decay(init_value, transition_steps, decay_rate)``
+    (not staircased): count -> init_value * decay_rate^(count /
+    transition_steps) in float32, init_value itself at count 0."""
+    f32 = np.float32
+
+    def schedule(count: int) -> np.float32:
+        if count <= 0:
+            return f32(init_value)
+        p = f32(count) / f32(transition_steps)
+        return f32(init_value) * np.power(f32(decay_rate), p)
+
+    return schedule
+
+
+class AdamW:
+    """``optax.adamw(lr, b1, b2, eps, weight_decay)``, or ``optax.adam(lr,
+    b1, b2, eps)`` at weight_decay 0; ``lr`` is a float or a schedule of
+    the step count (which starts at 0).
+
+    With count t (from 1), m = EMA_b1(g), v = EMA_b2(g^2), m_hat = m /
+    (1 - b1^t), v_hat = v / (1 - b2^t): the update is -lr(t - 1) *
+    (m_hat / (sqrt(v_hat) + eps) + weight_decay * p), the bias corrections
+    and the rate in float32, as optax computes them.  ``torch.optim.AdamW``
+    is not used: it decays the params apart from the Adam step and adds
+    ``eps`` before the second bias correction."""
+
+    def __init__(self, lr, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        self.lr = lr if callable(lr) else (lambda count: np.float32(lr))
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+
+    init = RAdam.init
+
+    def update(self, grads: Params, opt_state: dict, params: Params):
+        """-> (new params, new opt_state)."""
+        names = list(params)
+        p = [params[k] for k in names]
+        g = [grads[k] for k in names]
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - self.b1),
+                                torch._foreach_mul([opt_state["mu"][k]
+                                                    for k in names], self.b1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(g, g), 1 - self.b2),
+            torch._foreach_mul([opt_state["nu"][k] for k in names], self.b2))
+        lr = self.lr(opt_state["count"])
+        count = opt_state["count"] + 1
+        f32 = np.float32
+        bc1 = float(f32(1.0) - _pow_f32(self.b1, count))
+        bc2 = float(f32(1.0) - _pow_f32(self.b2, count))
+        u = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        torch._foreach_div_(u, den)
+        if self.weight_decay:
+            torch._foreach_add_(u, torch._foreach_mul(p, self.weight_decay))
+        torch._foreach_mul_(u, float(-f32(lr)))
+        new_p = torch._foreach_add(p, u)
+        return (dict(zip(names, new_p)),
+                {"count": count, "mu": dict(zip(names, mu)),
+                 "nu": dict(zip(names, nu))})
+
+
+def Adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> AdamW:
+    """``optax.adam(lr, b1, b2, eps)``."""
+    return AdamW(lr, b1, b2, eps)
 
 
 def make_optimizer(lr: float, weight_decay: float = 0.0) -> RAdam:

@@ -120,7 +120,9 @@ for name in ("audio.stft", "models.speaker", "text.segment",
              "cli.prepare_align", "cli.preprocess", "cli.get_mel_cache",
              "cli.all_metrics", "cli.evaluate", "from_torch",
              "models.melgan", "text.pinyin", "cli.convert_checkpoint",
-             "cli.serve", "cli.p_rtf_cm"):
+             "cli.serve", "cli.p_rtf_cm", "models.hifigan_disc",
+             "models.init", "train.hifigan_trainer", "train.ge2e_trainer",
+             "cli.train_hifigan", "cli.train_ge2e"):
     assert "cmtts_tpu_torch." + name in names, name
 import numpy as np, torch
 from cmtts_tpu_torch.core.config import config_from_dicts
@@ -167,6 +169,21 @@ assert np.isfinite(float(metrics["loss"]))
 with tempfile.TemporaryDirectory() as d:
     save_checkpoint(d, state)
     assert int(restore_checkpoint(d)["step"]) == 1
+from cmtts_tpu_torch.cli.train_hifigan import disc_config
+from cmtts_tpu_torch.train.hifigan_trainer import (HiFiGANTrainConfig,
+    init_hifigan_train, make_hifigan_train_step)
+hcfg = HiFiGANTrainConfig(segment_size=1024, batch_size=1)
+hstate, hgen, hdisc = init_hifigan_train(
+    hcfg, HiFiGANConfig(upsample_initial_channel=16), disc_config(64), "cpu")
+hstate, hm = make_hifigan_train_step(
+    hgen, hdisc, MelSpectrogram(device="cpu"), hcfg)(hstate, torch.rand(1, 1024))
+assert hstate["step"] == 1 and np.isfinite(float(hm["g_loss"]))
+from cmtts_tpu_torch.train.ge2e_trainer import (GE2ETrainConfig,
+    init_ge2e_train, make_ge2e_train_step)
+genc, gp, gtx, gopt = init_ge2e_train(0, 1e-4, "cpu")
+gp, gopt, gloss, _ = make_ge2e_train_step(genc, gtx, 2, 2, GE2ETrainConfig())(
+    gp, gopt, torch.rand(4, 20, 40))
+assert np.isfinite(float(gloss))
 assert not torch.cuda.is_available()
 try:
     Synthesizer(cfg, model)

@@ -261,3 +261,73 @@ def test_init_like_flax_matches_flax_init():
                 assert 0.8 < ratio < 1.25, (speaker_embedder, k, ratio)
         for name in ("pitch_embed", "energy_embed"):
             assert not getattr(model.variance_adaptor, name).weight[0].any()
+
+
+def test_init_like_flax_matches_flax_init_of_trainers():
+    """The vocoder and speaker-encoder trainers' fresh runs draw as flax
+    does: for the HiFi-GAN generator (one upsample stage, every kind of
+    its layers), the discriminators (MPD and MSD, grouped WNConvs) and the
+    GE2E encoder, zeros where flax has zeros and a standard deviation
+    within 20% of flax's for every tensor of 256 or more entries (through
+    the bridge); each WNConv's g is ||v||; and each gate's hidden kernel is
+    orthogonal, which flax's OptimizedLSTMCell draws it as (a std cannot
+    tell it from LeCun-normal: both give 1/sqrt(H))."""
+    import jax
+    import jax.numpy as jnp
+
+    from cmtts_tpu.models.hifigan import HiFiGANConfig as JGC
+    from cmtts_tpu.models.hifigan import HiFiGANGenerator as JG
+    from cmtts_tpu.models.hifigan_disc import HiFiGANDiscConfig as JDC
+    from cmtts_tpu.models.hifigan_disc import HiFiGANDiscriminators as JD
+    from cmtts_tpu.models.speaker import GE2EEncoder as JE
+    from cmtts_tpu_torch.convert import flax_to_state_dict
+    from cmtts_tpu_torch.models import hifigan, hifigan_disc
+    from cmtts_tpu_torch.models.speaker import (
+        GE2EEncoder,
+        init_ge2e_like_flax,
+    )
+
+    gen_cfg = dict(upsample_rates=(8,), upsample_kernel_sizes=(16,),
+                   upsample_initial_channel=64, num_mels=80)
+    disc_cfg = dict(periods=(2, 3), mpd_channels=(16, 32),
+                    msd_channels=(16, 32, 16), msd_groups=(1, 4, 1),
+                    msd_kernels=(15, 41, 5), msd_strides=(1, 2, 1),
+                    n_scales=2)
+    key = jax.random.PRNGKey(0)
+    cases = [
+        (jax.jit(JG(JGC(**gen_cfg)).init)(key, jnp.zeros((1, 4, 80))),
+         hifigan.HiFiGANGenerator(hifigan.HiFiGANConfig(**gen_cfg)),
+         hifigan.init_like_flax),
+        (jax.jit(JD(JDC(**disc_cfg)).init)(key, jnp.zeros((1, 256))),
+         hifigan_disc.HiFiGANDiscriminators(
+             hifigan_disc.HiFiGANDiscConfig(**disc_cfg)),
+         hifigan_disc.init_like_flax),
+        (jax.jit(JE().init)(key, jnp.zeros((1, 4, 40))), GE2EEncoder(),
+         init_ge2e_like_flax),
+    ]
+    for variables, model, init in cases:
+        flax = jax.tree_util.tree_map(np.asarray, variables["params"])
+        ref = flax_to_state_dict(flax, model)
+        init(model, torch.Generator().manual_seed(1))
+        name = type(model).__name__
+        for k, v in model.named_parameters():
+            r = ref[k]
+            if not r.any():
+                assert not v.any(), (name, k)
+            elif r.numel() >= 256:
+                ratio = float(v.detach().std() / r.std())
+                assert 0.8 < ratio < 1.25, (name, k, ratio)
+        for m in model.modules():
+            if isinstance(m, hifigan_disc.WNConv):
+                torch.testing.assert_close(m.g, m.v.flatten(1).norm(dim=1))
+    enc = cases[-1][1]
+    H = enc.lstm.hidden_size
+    for k in range(enc.lstm.num_layers):
+        w = getattr(enc.lstm, f"weight_hh_l{k}").detach()
+        for gate in range(4):
+            q = w[gate * H:(gate + 1) * H]
+            torch.testing.assert_close(q.T @ q, torch.eye(H), atol=1e-5,
+                                       rtol=0)
+        w = getattr(enc.lstm, f"weight_ih_l{k}").detach()
+        assert not torch.allclose(w[:H].T @ w[:H], torch.eye(w.shape[1]),
+                                  atol=1e-2)

@@ -453,3 +453,30 @@ def melgan_reference_module(cfg, seed: int = 0):
             return self.model(mel)
 
     return Generator().eval()
+
+
+def assert_adam_params_close(ref, got, lr: float, n_steps: int, what=""):
+    """Params after ``n_steps`` Adam steps of rate ``lr``, the port's
+    against JAX's.  A step moves each entry by about lr whatever its
+    gradient's size, so a near-zero gradient whose sign differs between
+    XLA and torch puts the two 2 lr apart: every entry within 2 lr per
+    step, and all but one in 1e4 within lr / 100 (gradients rounded in
+    another order, which Adam's normalisation scales to the step)."""
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2 * lr * n_steps,
+                               err_msg=what)
+    far = ~np.isclose(got, ref, rtol=1e-6, atol=lr / 100)
+    assert far.sum() <= max(1, far.size // 10_000), (what, far.sum())
+
+
+def formant_corpus(root, speakers: int = 4, utts: int = 3) -> str:
+    """A tiny multi-speaker formant corpus (``cli.gen_corpus --speakers``,
+    1.8-4.9 s utterances, none held out): -> its ``raw/`` root of
+    ``<speaker>/*.wav``."""
+    import os
+
+    from cmtts_tpu_torch.cli.gen_corpus import main
+
+    main(["--out", str(root), "--speakers", str(speakers),
+          "--utts_per_speaker", str(utts), "--holdout", "0"])
+    return os.path.join(str(root), "raw")
