@@ -91,8 +91,22 @@ exits non-zero):
      ``cli.train_ge2e`` with 2 held-out speakers and its
      ``ge2e_params.npy`` through ``PreDefinedEmbedder``.  Its numbers go
      on a ``{"trainers": {...}}`` line.
-  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6, 7, 8 and
-     9),
+  10. ranks and the MOS metric nets under ``build/chip_smoke_parallel/``
+     (removed at the end): ``cli.train_cm`` as a one-rank NCCL run under
+     ``torch.distributed.run`` with ``--steps_per_call 2 --profile_dir``
+     (the trace must exist), beside two ranks on the one card over gloo
+     (CUDA tensors through host copies): a dp=2 f32 CT step at B=32 (the
+     16 longest rows on rank 0, the 16 shortest on rank 1) against the
+     one-process step on the card, the 20 x 256 denoiser at tp=2 against
+     the whole one, dp=2 B=8 synthesis through the MRF kernels ([3, 1] on
+     each rank) against the one-process call; MBNet at its published
+     widths on three 3 s wavs and both LDNet test configurations, card
+     against CPU, with MBNet's ms an utterance; ``cli.all_metrics
+     --metrics mb_mos ld_mos`` on reference-format MBNet and LDNet files
+     written from seeded modules.  Its numbers go on a ``{"parallel":
+     {...}}`` line.
+  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6, 7, 8, 9
+     and 10),
      the card's name and power limit, and a last line
      ``{"ok": true, "device": {...}}``.
 
@@ -2180,6 +2194,443 @@ def trainers_phase(counters, root: str, device: str = "cuda",
     return out
 
 
+# -- phase 10: ranks and the MOS metric nets --------------------------------
+
+# the phase's card-vs-card and card-vs-CPU checks in float32, TF32 off:
+# reassociation only (per-rank partial sums, another conv algorithm)
+PAR_F32_TOL = dict(rtol=2e-4, atol=2e-4)
+MOS_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def join_ranks(procs, timeout: float) -> list:
+    """Wait for every process; as soon as one fails or the time is up,
+    stop the others (which would wait for it in a collective).  -> the
+    exit codes."""
+    end = time.monotonic() + timeout
+    while any(p.is_alive() for p in procs):
+        if time.monotonic() > end or any(
+                p.exitcode not in (None, 0) for p in procs):
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+            break
+        time.sleep(0.2)
+    for p in procs:
+        p.join()
+    return [p.exitcode for p in procs]
+
+
+def parallel_config(work: str, tiny: bool) -> str:
+    """Phase 6's config root (``write_serve_config``), dropout off, one
+    save at the end and a log every 2 steps."""
+    import yaml
+
+    root = write_serve_config(work, tiny)
+    for name, edit in (
+            ("model", lambda d: (d["transformer"].update(encoder_dropout=0.0),
+                                 d["variance_predictor"].update(dropout=0.0))),
+            ("train", lambda d: d["step"].update(save_step=100,
+                                                 log_step=2))):
+        path = os.path.join(root, "LJSpeech", f"{name}.yaml")
+        with open(path) as f:
+            d = yaml.safe_load(f)
+        edit(d)
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f)
+    return root
+
+
+def parallel_models(cfg, tiny: bool):
+    """(the CT step's model, the synthesis model, the vocoder), each from
+    a seed, so that every rank builds the same ones."""
+    import torch
+
+    from cmtts_tpu_torch.cli.synthesize import random_cmtts
+    from cmtts_tpu_torch.models.cmtts import CMTTS, init_like_flax
+    from cmtts_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
+
+    ct = init_like_flax(CMTTS(cfg), torch.Generator().manual_seed(0))
+    syn = random_cmtts(cfg, seed=1)
+    torch.manual_seed(2)
+    voc = HiFiGANGenerator(HiFiGANConfig(upsample_initial_channel=32)
+                           if tiny else HiFiGANConfig())
+    return ct, syn, voc.eval()
+
+
+def parallel_rank(rank: int, world: int, port: int, work: str, device: str,
+                  tiny: bool):
+    """One of two ranks of phase 10 (b), both on ``device`` over gloo: the
+    dp=2 CT step on this rank's 16 rows, the denoiser at tp=2, dp=2
+    synthesis.  Each saves its results and MRF launches under ``work``."""
+    import copy
+
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    from cmtts_tpu_torch.core.config import load_configs
+    from cmtts_tpu_torch.ops import mrf
+    from cmtts_tpu_torch.parallel.distributed import (
+        init_distributed,
+        make_mesh,
+        rank_rows,
+        shard_module,
+    )
+    from cmtts_tpu_torch.pipeline import Synthesizer
+    from cmtts_tpu_torch.train.loop import batch_to_device, make_train_step
+    from cmtts_tpu_torch.train.state import RAdam, create_train_state
+
+    _, _, dev = init_distributed(device, backend="gloo")
+    try:
+        inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+        cfg = load_configs("LJSpeech", inp["config_root"])
+        ct, syn, voc = parallel_models(cfg, tiny)
+        dp_mesh, tp_mesh = make_mesh(1), make_mesh(2)
+        out, walls = {}, {}
+        # the dp=2 CT step
+        ct = ct.to(dev)
+        opt = RAdam(cfg.train.cm.lr)
+        state = create_train_state(
+            {k: v.detach() for k, v in ct.named_parameters()}, opt, 3)
+        step = make_train_step(ct, cfg, opt, 3, dp_group=dp_mesh.data)
+        local = batch_to_device(rank_rows(inp["batch"], rank, world), dev)
+        t0 = time.perf_counter()
+        state, m = step(state, local, inp["probs"], 0.95,
+                        indices=inp["indices"], noise=inp["noise"])
+        out["metrics"] = {k: float(v) for k, v in m.items() if v.ndim == 0}
+        walls["dp2_step_s"] = time.perf_counter() - t0
+        out["params"] = {k: v.cpu() for k, v in state.params.items()}
+        del state, step, ct
+        # the denoiser at tp=2 against the whole one
+        whole = syn.denoiser.float().to(dev)
+        split = copy.deepcopy(whole)
+        shard_module(split, tp_mesh.model)
+        x, t, cond = (v.to(dev) for v in inp["denoiser_in"])
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            y = split(x, t, cond)
+            walls["tp2_denoiser_s"] = time.perf_counter() - t0
+            ref = whole(x, t, cond)
+        out["tp2_err"] = float((y - ref).abs().max())
+        out["tp2_vs_whole_ok"] = bool(torch.allclose(y, ref, **PAR_F32_TOL))
+        del whole, split
+        # dp=2 synthesis through the kernels
+        for fn in (mrf.fused_mrf_stage, mrf.fused_mrf_stage_streamed):
+            fn.launches = 0
+        synth = Synthesizer(cfg, syn, voc, device=dev, dp_group=dp_mesh.data)
+        t0 = time.perf_counter()
+        out["synth"] = synth(inp["seqs"], mel_bucket=inp["mel_bucket"],
+                             seed=5)
+        walls["dp2_synth_s"] = time.perf_counter() - t0
+        out["launches"] = [mrf.fused_mrf_stage.launches,
+                           mrf.fused_mrf_stage_streamed.launches]
+        out["walls_s"] = walls
+        torch.save(out, os.path.join(work, f"out_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(counters, root: str, device: str = "cuda",
+                   tiny: bool = False) -> dict:
+    """Phase 10 under ``build/chip_smoke_parallel`` (removed at the end):
+    (a) ``cli.train_cm`` as a one-rank run under ``torch.distributed.run``
+    (NCCL on the card) with ``--steps_per_call 2 --profile_dir``, beside
+    the rest; (b) two ranks on the one card over gloo (CUDA tensors
+    through host copies): a dp=2 f32 CT step at B=32, the ranks' rows of
+    different lengths, against the one-process step on the card; the
+    20 x 256 denoiser at tp=2 against the whole one; dp=2 B=8 synthesis
+    through the MRF kernels against the one-process call; (c) MBNet at its
+    widths on three 3 s wavs, card against CPU, ms an utterance; (d) both
+    LDNet configurations, card against CPU; (e) ``cli.all_metrics
+    --metrics mb_mos ld_mos`` on reference-format files.  Returns the
+    readings and the MRF launches; raises on any failure."""
+    import multiprocessing
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from torch_port_helpers import (  # numpy and torch only
+        LDNET_V2_FFN,
+        LDNET_V3_RNN,
+        flax_trees,
+        ldnet_reference_state_dict,
+        mbnet_reference_state_dict,
+        seeded_module,
+    )
+
+    from cmtts_tpu_torch.audio.wavio import write_wav
+    from cmtts_tpu_torch.cli.all_metrics import main as all_metrics
+    from cmtts_tpu_torch.core.config import load_configs
+    from cmtts_tpu_torch.data.dataset import FeatureDataset, collate_batch
+    from cmtts_tpu_torch.data.feature_corpus import write_feature_corpus
+    from cmtts_tpu_torch.metrics.ldnet import LDNet
+    from cmtts_tpu_torch.metrics.mos import (
+        MBNetMeanNet,
+        MOSCal,
+        hamming_spectrum,
+    )
+    from cmtts_tpu_torch.pipeline import Synthesizer
+    from cmtts_tpu_torch.train.loop import batch_to_device, make_train_step
+    from cmtts_tpu_torch.train.state import RAdam, create_train_state
+
+    log("# phase 10: ranks (data and tensor parallelism) and the MOS "
+        "metric nets")
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    work = os.path.join(root, "build", "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg_root = parallel_config(work, tiny)
+    write_feature_corpus(os.path.join(work, "pre"), 128, 8, seed=0,
+                         **(dict(phonemes=(5, 20), frames=(1, 4))
+                            if tiny else {}))
+    cfg = load_configs("LJSpeech", cfg_root)
+    out, walls = {}, {}
+    for fn in counters:
+        fn.launches = 0
+
+    # (a) the training CLI under torch.distributed.run, in the background
+    prof = os.path.join(work, "profile")
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cli_log = open(os.path.join(work, "train_cli.log"), "w")
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "cmtts_tpu_torch.cli.train_cm",
+         "--model", "consistency_training", "--dataset", "LJSpeech",
+         "--config_root", cfg_root, "--total_step", "8",
+         "--steps_per_call", "2", "--profile_dir", prof,
+         "--schedule_sampler", "loss-second-moment", "--device", device],
+        cwd=root, env=env, stdout=cli_log, stderr=subprocess.STDOUT)
+    try:
+        # (b) two gloo ranks on the one card against one process
+        dataset = FeatureDataset("train.txt", cfg)
+        lens = [dataset[i]["mel"].shape[0] for i in range(len(dataset))]
+        order = np.argsort(lens)[::-1]
+        B = 32
+        # rank 0 takes the 16 longest rows, rank 1 the 16 shortest
+        picks = np.concatenate([order[:B // 2], order[-(B // 2):]])
+        host = collate_batch([dataset[int(i)] for i in picks], cfg)
+        host = {k: v for k, v in host.items()
+                if k not in ("ids", "raw_texts")}
+        g = torch.Generator().manual_seed(11)
+        probs = np.asarray([0.5, 0.5], np.float32)
+        idx = torch.multinomial(torch.from_numpy(probs), B, replacement=True,
+                                generator=g)
+        noise = torch.randn(host["mels"].shape, generator=g)
+        C = cfg.model.denoiser.residual_channels
+        L = 64 if tiny else 512
+        x_d = torch.randn(8, L, cfg.stft.n_mel_channels, generator=g)
+        t_d = torch.rand(8, generator=g) * 3
+        cond_d = torch.randn(8, L, cfg.model.transformer.encoder_hidden,
+                             generator=g)
+        seqs = [np.random.RandomState(40 + i).randint(13, 140, 96).astype(
+            np.int32) for i in range(8)]
+        mel_bucket = 128 if tiny else 1024
+        torch.save({"config_root": cfg_root, "batch": host, "probs": probs,
+                    "indices": idx, "noise": noise,
+                    "denoiser_in": (x_d, t_d, cond_d), "seqs": seqs,
+                    "mel_bucket": mel_bucket},
+                   os.path.join(work, "inputs.pt"))
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        t_ranks = time.perf_counter()
+        # both ranks on the one card: an explicit index, not LOCAL_RANK
+        rank_dev = "cuda:0" if cuda and dev.index is None else device
+        ranks = [ctx.Process(target=parallel_rank,
+                             args=(r, 2, port, work, rank_dev, tiny))
+                 for r in range(2)]
+        for p in ranks:
+            p.start()
+        try:
+            ct, syn, voc = parallel_models(cfg, tiny)
+            ct = ct.to(dev)
+            opt = RAdam(cfg.train.cm.lr)
+            state = create_train_state(
+                {k: v.detach() for k, v in ct.named_parameters()}, opt, 3)
+            state1, m1 = make_train_step(ct, cfg, opt, 3)(
+                state, batch_to_device(host, dev), probs, 0.95, indices=idx,
+                noise=noise)
+            del state, ct
+            synth1 = Synthesizer(cfg, syn, voc, device=dev)
+            mel1, lens1, wav1 = synth1(seqs, mel_bucket=mel_bucket, seed=5)
+            one_launches = [fn.launches for fn in counters]
+        finally:
+            codes = join_ranks(ranks, 300)
+        walls["ranks_s"] = time.perf_counter() - t_ranks
+        if codes != [0, 0]:
+            raise AssertionError(f"phase 10 ranks exited {codes}")
+        r0, r1 = (torch.load(os.path.join(work, f"out_{r}.pt"),
+                             weights_only=False) for r in range(2))
+        errs = {}
+        for k in ("loss", "grad_norm", "tts_loss", "cm_loss"):
+            errs[k] = check(f"dp=2 step {k} vs one process",
+                            torch.tensor(r0["metrics"][k]),
+                            m1[k].cpu(), PAR_F32_TOL)
+        errs["params"] = max(
+            check(f"dp=2 step params {k} vs one process", r0["params"][k],
+                  v.cpu(), TRAIN_PARAM_TOL)
+            for k, v in state1.params.items())
+        if not r0["tp2_vs_whole_ok"]:
+            raise AssertionError(f"tp=2 denoiser vs whole: max |err| "
+                                 f"{r0['tp2_err']:.3e}")
+        errs["tp2_denoiser"] = r0["tp2_err"]
+        mel2, lens2, wav2 = r0["synth"]
+        if not (lens2 == lens1).all():
+            raise AssertionError(f"dp=2 mel_lens {lens2} != {lens1}")
+        errs["dp2_mel"] = check("dp=2 synthesis mel vs one process",
+                                torch.from_numpy(mel2),
+                                torch.from_numpy(mel1), BF16_TOL)
+        errs["dp2_wav"] = check("dp=2 synthesis wav vs one process",
+                                torch.from_numpy(wav2),
+                                torch.from_numpy(wav1), BF16_TOL)
+        rank_launches = [r0["launches"], r1["launches"]]
+        if cuda and (one_launches != [3, 1]
+                     or any(rl != [3, 1] for rl in rank_launches)):
+            raise AssertionError(f"MRF launches: one process {one_launches},"
+                                 f" ranks {rank_launches}, not [3, 1] each")
+        out["ranks"] = {"max_abs_err": errs, "B": B,
+                        "rank_mel_frames": [int(host["mels"].shape[1])] * 2,
+                        "rank_row_frames": [
+                            int(host["mel_lens"][:B // 2].sum()),
+                            int(host["mel_lens"][B // 2:].sum())],
+                        "launches": {"one_process": one_launches,
+                                     "ranks": rank_launches},
+                        "rank_walls_s": r0["walls_s"]}
+        log(f"  two gloo ranks on the {device}: dp=2 f32 CT step B={B} "
+            f"(rank frames {out['ranks']['rank_row_frames']}) vs one "
+            f"process, tp=2 {C}-channel denoiser vs whole, dp=2 B=8 "
+            f"synthesis vs one process (MRF launches {rank_launches}); max "
+            f"|err| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; {walls['ranks_s']:.1f} s")
+
+        # (c) MBNet and (d) LDNet, card against CPU
+        wavs = [reference_wav(s) for s in (0, 1, 2)]
+        specs = torch.from_numpy(np.stack([hamming_spectrum(w)
+                                           for w in wavs]))
+        mb_cpu = seeded_module(MBNetMeanNet(), 3)
+        mb_card = seeded_module(MBNetMeanNet(), 3).to(dev)
+        with torch.no_grad():
+            s_cpu = mb_cpu(specs)
+            s_card = mb_card(specs.to(dev))
+        mos = {"mbnet_frames": int(specs.shape[1]),
+               "mbnet_err": check("MBNet card vs CPU", s_card.cpu(), s_cpu,
+                                  MOS_TOL)}
+        one = specs[:1].to(dev)
+        with torch.no_grad():
+            if cuda:
+                mos["mbnet_ms_per_utt"] = cuda_ms(lambda: mb_card(one), 5)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                mb_cpu(specs[:1])
+            mos["mbnet_cpu_ms_per_utt"] = (time.perf_counter() - t0) / 3e-3
+        for name, lcfg in (("v3_rnn_meannet", LDNET_V3_RNN),
+                           ("v2_ffn_categorical", LDNET_V2_FFN)):
+            ld_cpu = seeded_module(LDNet(lcfg), 4)
+            ld_card = seeded_module(LDNet(lcfg), 4).to(dev)
+            with torch.no_grad():
+                a_cpu, p_cpu = ld_cpu.average_inference(specs)
+                a_card, p_card = ld_card.average_inference(specs.to(dev))
+            mos[f"ldnet_{name}_err"] = max(
+                check(f"LDNet {name} scores card vs CPU", a_card.cpu(), a_cpu,
+                      MOS_TOL),
+                check(f"LDNet {name} posteriors card vs CPU", p_card.cpu(),
+                      p_cpu, MOS_TOL))
+        log(f"  MBNet (published widths) on 3 x {specs.shape[1]} frames x "
+            f"257: card vs CPU max |err| {mos['mbnet_err']:.3e}, "
+            + (f"{mos['mbnet_ms_per_utt']:.2f} ms an utterance on the card "
+               if cuda else "")
+            + f"({mos['mbnet_cpu_ms_per_utt']:.1f} ms on the CPU); LDNet "
+            f"v3_rnn_meannet {mos['ldnet_v3_rnn_meannet_err']:.3e}, "
+            f"v2_ffn_categorical {mos['ldnet_v2_ffn_categorical_err']:.3e}")
+
+        # (e) cli.all_metrics on reference-format files
+        mos_dir = os.path.join(work, "mos")
+        syn_dir, raw_dir = (os.path.join(mos_dir, d) for d in ("syn", "raw"))
+        os.makedirs(syn_dir)
+        os.makedirs(raw_dir)
+        for i, w in enumerate(wavs):
+            write_wav(os.path.join(syn_dir, f"utt{i}.wav"), w, 22050)
+            write_wav(os.path.join(raw_dir, f"utt{i}.wav"), w[::-1].copy(),
+                      22050)
+        mb_pt, ld_pt, ld_yml = (os.path.join(mos_dir, n) for n in (
+            "model-50000.pt", "model-27000.pt", "config.yml"))
+        torch.save(mbnet_reference_state_dict(*flax_trees(mb_cpu)), mb_pt)
+        ld_ref = seeded_module(LDNet(LDNET_V3_RNN), 4)
+        torch.save(ldnet_reference_state_dict(*flax_trees(ld_ref),
+                                              LDNET_V3_RNN), ld_pt)
+        with open(ld_yml, "w") as f:
+            yaml.safe_dump(LDNET_V3_RNN, f)
+        t0 = time.perf_counter()
+        vals = all_metrics(["--single", "--syn_root", syn_dir, "--raw_folder",
+                            raw_dir, "--metrics", "mb_mos", "ld_mos",
+                            "--mos_ckpt", mb_pt, "--ld_ckpt", ld_pt,
+                            "--ld_config", ld_yml, "--device", device])
+        walls["all_metrics_s"] = time.perf_counter() - t0
+        cal = MOSCal(22050, mb_pt, ld_pt, ld_yml, device="cpu")
+        want = {"mb_mos": float(np.mean([cal.get_mb_mos(w) for w in wavs])),
+                "ld_mos": float(np.mean([cal.get_ld_mos(w) for w in wavs]))}
+        for k, v in want.items():
+            check(f"cli.all_metrics {k} on the {device} vs MOSCal on the CPU",
+                  torch.tensor(vals[k]), torch.tensor(v), MOS_TOL)
+        if not 1.0 <= vals["ld_mos"] <= 5.0:
+            raise AssertionError(f"range-clipped ld_mos {vals['ld_mos']}")
+        mos["all_metrics"] = vals
+        out["mos"] = mos
+        log(f"  cli.all_metrics --metrics mb_mos ld_mos (reference-format "
+            f"MBNet and LDNet files): {vals}, against MOSCal on the CPU; "
+            f"{walls['all_metrics_s']:.1f} s")
+
+        # (a) the CLI's run
+        rc = cli.wait(timeout=300)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        cli_log.close()
+    walls["train_cli_s"] = time.perf_counter() - t_cli
+    with open(os.path.join(work, "train_cli.log")) as f:
+        text = f.read()
+    trace = os.path.join(prof, "trace_rank0.json")
+    if rc != 0 or "rank 0 of 1" not in text or not os.path.isfile(trace):
+        raise AssertionError(f"torch.distributed.run cli.train_cm: rc {rc}, "
+                             f"trace {os.path.isfile(trace)}\n{text[-3000:]}")
+    out["train_cli"] = {"rc": rc, "trace_bytes": os.path.getsize(trace),
+                        "backend": "nccl" if cuda else "gloo"}
+    log(f"  torch.distributed.run cli.train_cm (1 rank, "
+        f"{out['train_cli']['backend']}) --steps_per_call 2 --profile_dir: "
+        f"8 steps in {walls['train_cli_s']:.1f} s, trace "
+        f"{out['train_cli']['trace_bytes']} bytes")
+
+    out["launches"] = {fn.__name__: fn.launches + sum(
+        rl[i] for rl in rank_launches) for i, fn in enumerate(counters)}
+    if cuda and min(out["launches"].values()) == 0:
+        raise AssertionError(f"a kernel never ran in phase 10: "
+                             f"{out['launches']}")
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    log(f"# phase 10 launches {out['launches']}, {walls['phase_s']:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2390,6 +2841,10 @@ def main() -> int:
     trainers = trainers_phase(counters,
                               os.path.dirname(os.path.abspath(__file__)))
 
+    # -- phase 10: ranks and the MOS metric nets ---------------------------
+    parallel = parallel_phase(counters,
+                              os.path.dirname(os.path.abspath(__file__)))
+
     # -- phase 4: summary lines --------------------------------------------
     src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
@@ -2406,13 +2861,15 @@ def main() -> int:
                          + train["launches"][name]
                          + data["launches"][name]
                          + served["launches"][name]
-                         + trainers["launches"][name]),
+                         + trainers["launches"][name]
+                         + parallel["launches"][name]),
             "launches_by_phase": {"3": launches[name],
                                   "5": zero_shot["launches"][name],
                                   "6": train["launches"][name],
                                   "7": data["launches"][name],
                                   "8": served["launches"][name],
-                                  "9": trainers["launches"][name]},
+                                  "9": trainers["launches"][name],
+                                  "10": parallel["launches"][name]},
             "design": "mma.sync bf16", "float32_design": "simt f32",
             "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
             "hmma_in_sass": hmma,
@@ -2434,6 +2891,7 @@ def main() -> int:
     print(json.dumps({"data": data}))
     print(json.dumps({"serve": served}))
     print(json.dumps({"trainers": trainers}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,11 @@
 
 With ``--single`` it prints ``<metric>: <value>`` for one results dir;
 otherwise it walks the step subdirectories and writes a CSV.  The metrics
-are host numpy; ``speaker_cos`` embeds with the port's GE2E on
-``--device`` (``cuda`` by default; the CLI raises without CUDA unless given
-``--device cpu``).  ``wer`` needs ``--asr_model``, a local directory of
-whisper weights; ``mb_mos`` / ``ld_mos`` raise until the metric nets are
-ported.
+are host numpy; ``speaker_cos`` embeds with the port's GE2E and ``mb_mos``
+/ ``ld_mos`` score with MBNet (``--mos_ckpt``) and LDNet (``--ld_ckpt``,
+``--ld_config``) on ``--device`` (``cuda`` by default; the CLI raises
+without CUDA unless given ``--device cpu``).  ``wer`` needs
+``--asr_model``, a local directory of whisper weights.
 """
 
 from __future__ import annotations
@@ -30,12 +30,18 @@ def main(argv=None):
                         help="e.g. mcd mcd24 mcd_dctmel ffe ssim f0_rmse "
                              "f0_corr mfcc_cos si_sdr fid_mel fid_mfcc "
                              "precision_mel recall_mel speaker_cos "
-                             "mfcc_gmm_kl wer")
+                             "mfcc_gmm_kl wer mb_mos ld_mos")
     parser.add_argument("--single", action="store_true",
                         help="treat --syn_root as one results dir")
     parser.add_argument("--file_find_type", type=str, default=None,
                         choices=[None, "key_step", "only_end"])
     parser.add_argument("--max_pairs", type=int, default=None)
+    parser.add_argument("--mos_ckpt", type=str, default=None,
+                        help="local MBNet torch checkpoint for mb_mos")
+    parser.add_argument("--ld_ckpt", type=str, default=None,
+                        help="local LDNet torch checkpoint for ld_mos")
+    parser.add_argument("--ld_config", type=str, default=None,
+                        help="LDNet config.yml accompanying --ld_ckpt")
     parser.add_argument("--asr_model", type=str, default=None,
                         help="local whisper-weights dir for wer")
     parser.add_argument("--speaker_embedder_ckpt", type=str, default=None,
@@ -52,7 +58,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     kw = dict(transcriber=args.asr_model, meta_txt=args.meta_txt,
-              device=device)
+              mos_ckpt=args.mos_ckpt, ld_ckpt=args.ld_ckpt,
+              ld_config=args.ld_config, device=device)
     if args.speaker_embedder_ckpt:
         from cmtts_tpu_torch.models.speaker import (
             GE2EInference,

@@ -6,6 +6,8 @@
         [--total_step N] [--bf16] [--device cuda]
     python -m cmtts_tpu_torch.cli.train_cm --model consistency_distillation \\
         --teacher_path <ckpt>/CMDenoiserTTS/step_00010000 --dataset LJSpeech
+    torchrun --nproc_per_node N -m cmtts_tpu_torch.cli.train_cm \\
+        --model consistency_training --dataset LJSpeech [--tp T]
 
 It reads the preprocessed feature corpus named by the config, draws
 length-sorted bucketed batches, and takes RAdam steps with the configured
@@ -23,6 +25,20 @@ A distillation teacher is a step directory of this port's checkpoints
 (``--teacher_role`` picks model, target_model or ema_k), a flat ``a/b/c``
 npz of flax params or a reference ``CMTotalTTS`` state dict (``.pt``,
 converted on load); the student starts from a copy of it.
+
+Under ``torchrun`` every rank runs the same seeded feed, pads each batch
+to the data-parallel degree (world / ``--tp``) and takes its own rows; the
+step computes the one-device step over the global batch
+(:mod:`cmtts_tpu_torch.parallel.distributed`), the LSM sampler learns from
+the gathered rows with the padded ones dropped, and ``--tp`` splits the
+denoiser's blocks.  Rank 0 logs and saves (the whole state, gathered from
+its shards, so that a checkpoint resumes at any tp); the others wait.
+``--steps_per_call K`` takes K steps on one set of sampler probabilities
+and hands the LSM history the K steps at once (K is 1 under a
+progressive ``scale_mode``).  ``--profile_dir`` traces steps 2K+1 .. 7K
+with ``torch.profiler`` into ``trace_rank<r>.json``.  With ``tensorboard``
+in ``CMTTS_LOG_FORMAT`` each ``synth_step`` also logs the mel, f0, CWT and
+energy figures and a Griffin-Lim rendering of the one-step mel.
 """
 
 from __future__ import annotations
@@ -34,7 +50,9 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _replace_cm(cfg, **kw):
@@ -111,6 +129,16 @@ def main(argv=None) -> dict:
     parser.add_argument("--cwt_masked_std", action="store_true",
                         help="padding-invariant inverse-CWT f0; use the "
                              "same flag at synthesis")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree: split the denoiser's "
+                             "blocks over T ranks; world / T is the "
+                             "data-parallel degree")
+    parser.add_argument("--steps_per_call", type=int, default=1,
+                        help="K steps on one set of sampler probabilities; "
+                             "the LSM history takes the K steps at once")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="trace steps 2K+1 .. 7K with torch.profiler "
+                             "into <dir>/trace_rank<r>.json")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
@@ -123,6 +151,18 @@ def main(argv=None) -> dict:
         prefetch_iterator,
     )
     from cmtts_tpu_torch.models.cmtts import CMTTS, init_like_flax
+    from cmtts_tpu_torch.parallel.distributed import (
+        broadcast_params,
+        broadcast_state,
+        gather_per_sample,
+        init_distributed,
+        make_mesh,
+        pad_batch_to_multiple,
+        rank_rows,
+        tp_gather_state,
+        tp_shard_params,
+        tp_shard_state,
+    )
     from cmtts_tpu_torch.train import kvlogger
     from cmtts_tpu_torch.train.checkpoint import (
         check_run_config,
@@ -145,7 +185,10 @@ def main(argv=None) -> dict:
         make_optimizer,
     )
 
-    device = resolve_device(args.device)
+    own_group = "RANK" in os.environ and not dist.is_initialized()
+    rank, world, device = init_distributed(resolve_device(args.device))
+    mesh = make_mesh(args.tp)
+    lead = rank == 0
     cfg = load_configs(args.dataset, args.config_root)
     if args.cwt_masked_std:
         cfg = dataclasses.replace(cfg, pitch=dataclasses.replace(
@@ -164,8 +207,15 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, ckpt_path=cfg.train.ckpt_path + tag))
     ckpt = cfg.train.ckpt_path
-    logger = kvlogger.configure(os.path.join(cfg.train.log_path + "_cm" + tag,
-                                             "train"))
+    logger = (kvlogger.configure(os.path.join(cfg.train.log_path + "_cm" + tag,
+                                              "train")) if lead else None)
+    if logger is not None and logger.has_tb:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise SystemExit("the TensorBoard figures need matplotlib, which "
+                             f"is not importable here ({e}); drop "
+                             "tensorboard from CMTTS_LOG_FORMAT") from e
 
     step0 = args.restore_step
     if step0 < 0:
@@ -180,10 +230,14 @@ def main(argv=None) -> dict:
     if step0 > 0:
         # the recorded flags are checked before the sidecar is rewritten
         check_run_config(ckpt, run_config)
-    write_run_config(ckpt, run_config)
+    if world > 1:
+        dist.barrier()
+    if lead:
+        write_run_config(ckpt, run_config)
 
     print(f"==> CM-TTS training (PyTorch port): {args.model} on "
-          f"{args.dataset}, device {device}")
+          f"{args.dataset}, device {device}, rank {rank} of {world} "
+          f"(dp {mesh.dp} x tp {mesh.tp})")
     dataset = FeatureDataset("train.txt", cfg, sort=True, drop_last=True)
     print(f"==> dataset: {len(dataset)} utterances")
 
@@ -238,72 +292,197 @@ def main(argv=None) -> dict:
             # the student starts from a copy of the teacher
             state = create_train_state(teacher_params, opt, n_ema)
 
+    if world > 1:
+        # every rank starts from rank 0's state (and teacher)
+        broadcast_state(state)
+        if teacher_params is not None:
+            broadcast_params(teacher_params)
+    if mesh.tp > 1:
+        state = tp_shard_state(state, mesh.tp_rank, mesh.tp)
+        if teacher_params is not None:
+            teacher_params = tp_shard_params(teacher_params, mesh.tp_rank,
+                                             mesh.tp)
+
     compute_dtype = torch.bfloat16 if args.bf16 else None
+    K = max(1, args.steps_per_call)
+    if K > 1 and cm.scale_mode != "fixed":
+        print("==> steps_per_call forced to 1: a progressive scale_mode "
+              "changes num_scales within a call")
+        K = 1
 
     def build_step(num_scales: int):
         return make_train_step(model, cfg, opt, num_scales,
                                teacher_params=teacher_params,
                                compute_dtype=compute_dtype,
                                teacher_sched=teacher_sched,
-                               edm_p_mean=args.p_mean, edm_p_std=args.p_std)
+                               edm_p_mean=args.p_mean, edm_p_std=args.p_std,
+                               dp_group=mesh.data, tp_group=mesh.model)
 
     _, num_scales = ema_scale_fn(step0)
     train_step = build_step(num_scales)
-    synth_step = make_synthesize_step(model, cfg)
+    synth_step = make_synthesize_step(model, cfg, with_viz=True,
+                                      dp_group=mesh.data)
     generator = torch.Generator(device=device).manual_seed(cm.seed)
-    feed = prefetch_iterator(lambda: batch_iterator(
-        dataset, cfg.train.batch_size, cfg.train.group_size, seed=cm.seed))
 
+    def rank_feed():
+        # every rank draws the same global batches and keeps its rows;
+        # padded duplicates carry sample_valid 0
+        for b in batch_iterator(dataset, cfg.train.batch_size,
+                                cfg.train.group_size, seed=cm.seed):
+            if mesh.dp > 1:
+                b, _ = pad_batch_to_multiple(
+                    {k: v for k, v in b.items()
+                     if k not in ("ids", "raw_texts")}, mesh.dp)
+                b = rank_rows(b, mesh.dp_rank, mesh.dp)
+            yield b
+
+    feed = prefetch_iterator(rank_feed)
     result = {"start_step": step0, "restored": restored,
               "restored_sampler": restored_sampler, "losses": []}
-    step = step0 + 1
+    step = step0 + 1      # the first step of the coming call
     t_last, steps_since_log = time.perf_counter(), 0
+    prof, gl = None, None
+
+    def stop_profiler(why: str):
+        nonlocal prof
+        if prof is not None:
+            prof.stop()
+            path = os.path.join(args.profile_dir, f"trace_rank{rank}.json")
+            prof.export_chrome_trace(path)
+            print(f"==> profiler trace written to {path} ({why})")
+            prof = None
+            args.profile_dir = None
+
     with contextlib.closing(feed):
-        for host_batch in feed:
-            target_ema, new_scales = ema_scale_fn(step)
-            if new_scales != num_scales:
+        while True:
+            window = [next(feed) for _ in range(K)]
+            last_step = step + K - 1
+            new_scales = ema_scale_fn(step)[1]
+            if new_scales != num_scales:      # only reachable at K == 1
                 num_scales = new_scales
                 train_step = build_step(num_scales)
                 sampler = make_sampler(num_scales)
-            batch = batch_to_device(host_batch, device)
-            state, metrics = train_step(state, batch, sampler.probs(),
-                                        target_ema, generator)
+            if args.profile_dir:
+                if prof is None and step >= step0 + 1 + 2 * K:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    os.makedirs(args.profile_dir, exist_ok=True)
+                    prof = profile(activities=[ProfilerActivity.CPU] + (
+                        [ProfilerActivity.CUDA] if device.type == "cuda"
+                        else []))
+                    prof.start()
+                elif prof is not None and step >= step0 + 1 + 7 * K:
+                    stop_profiler(f"steps {step0 + 1 + 2 * K}-{step - 1}")
+
+            probs = sampler.probs()
+            steps = []
+            for i, host_batch in enumerate(window):
+                batch = batch_to_device(host_batch, device)
+                state, metrics = train_step(state, batch, probs,
+                                            ema_scale_fn(step + i)[0],
+                                            generator)
+                steps.append((batch, metrics))
+                result["losses"].append(float(metrics["loss"]))
             if sampler.needs_update:
-                sampler.update(metrics["indices"].cpu().numpy(),
-                               metrics["loss_per_sample"].cpu().numpy())
-            result["losses"].append(float(metrics["loss"]))
-            steps_since_log += 1
+                # the global batch's rows, padded duplicates dropped; the
+                # K steps' at once
+                idx, lps = [], []
+                for batch, m in steps:
+                    i_ = gather_per_sample(m["indices"], mesh.data)
+                    l_ = gather_per_sample(m["loss_per_sample"], mesh.data)
+                    if "sample_valid" in batch:
+                        keep = gather_per_sample(batch["sample_valid"],
+                                                 mesh.data) > 0
+                        i_, l_ = i_[keep], l_[keep]
+                    idx.append(i_)
+                    lps.append(l_)
+                sampler.update(np.concatenate(idx), np.concatenate(lps))
+            steps_since_log += K
 
-            if step % log_step == 0:
-                _, mel_loss = synth_step(state.target_params, batch,
-                                         generator)
-                dt = time.perf_counter() - t_last
-                t_last = time.perf_counter()
-                logger.logkv("step", step)
-                logger.logkv("mel_loss_onestep", float(mel_loss))
-                logger.logkv("steps_per_sec", steps_since_log / dt)
-                steps_since_log = 0
-                for k, v in metrics.items():
-                    if v.ndim == 0:
-                        logger.logkv(k, float(v))
-                logger.dumpkvs()
+            if last_step // log_step > (step - 1) // log_step:
+                batch = steps[-1][0]
+                mel, mel_loss, viz = synth_step(state.target_params, batch,
+                                                generator)
+                if logger is not None:
+                    if logger.has_tb and last_step // cfg.train.synth_step \
+                            > (step - 1) // cfg.train.synth_step:
+                        gl = log_figures(logger, cfg, batch, mel, viz,
+                                         last_step, gl, device)
+                    dt = time.perf_counter() - t_last
+                    logger.logkv("step", last_step)
+                    logger.logkv("mel_loss_onestep", float(mel_loss))
+                    logger.logkv("steps_per_sec", steps_since_log / dt)
+                    for k, v in steps[-1][1].items():
+                        if v.ndim == 0:
+                            logger.logkv(k, np.mean([float(m[k])
+                                                     for _, m in steps]))
+                    logger.dumpkvs()
+                t_last, steps_since_log = time.perf_counter(), 0
 
-            if step % save_step == 0 or step >= total_step:
-                path = save_checkpoint(
-                    ckpt, state, sampler.state_dict()
-                    if hasattr(sampler, "state_dict") else None)
-                print(f"==> saved {path}")
+            done = last_step >= total_step
+            if last_step // save_step > (step - 1) // save_step or done:
+                whole = tp_gather_state(state, mesh.model)
+                if lead:
+                    path = save_checkpoint(
+                        ckpt, whole, sampler.state_dict()
+                        if hasattr(sampler, "state_dict") else None)
+                    print(f"==> saved {path}")
+                if world > 1:
+                    dist.barrier()
                 if os.environ.get("DIFFUSION_TRAINING_TEST", ""):
                     print("==> DIFFUSION_TRAINING_TEST set; stopping after "
                           "first save")
                     break
-            if step >= total_step:
+            if done:
                 print("==> training complete")
                 break
-            step += 1
-    logger.close()
-    result.update(state=state, sampler=sampler)
+            step = last_step + 1
+    stop_profiler("training ended")
+    if logger is not None:
+        logger.close()
+    result.update(state=tp_gather_state(state, mesh.model), sampler=sampler)
+    if own_group:
+        dist.destroy_process_group()
     return result
+
+
+def log_figures(logger, cfg, batch, mel, viz, step: int, gl, device):
+    """The mel, f0, CWT and energy figures of the batch's first row and a
+    Griffin-Lim rendering of its one-step mel (the reference's
+    synth_one_sample_diff, utils/tools.py:294-345); -> the Griffin-Lim
+    instance, built once."""
+    from cmtts_tpu_torch.audio.stft import GriffinLim, MelSpectrogram
+    from cmtts_tpu_torch.utils_plot import (
+        contour_comparison_figure,
+        mel_comparison_figure,
+    )
+
+    L = int(batch["mel_lens"][0])
+    row = {k: v[0, :L].float().cpu().numpy() for k, v in viz.items()}
+    syn = mel[0, :L].float().cpu().numpy()
+    logger.log_figure("synth/mel_comparison", mel_comparison_figure(
+        batch["mels"][0, :L].cpu().numpy(), syn, f"step {step}"), step)
+    if "f0_target" in row:
+        logger.log_figure("synth/f0_comparison", contour_comparison_figure(
+            row["f0_target"], row["f0_pred"], f"f0 - step {step}",
+            "f0 (Hz)"), step)
+    if "cwt_target" in row:
+        logger.log_figure("synth/cwt_comparison", mel_comparison_figure(
+            row["cwt_target"], row["cwt_pred"], f"pitch cwt - step {step}"),
+            step)
+    if "e_target" in row:
+        logger.log_figure("synth/energy_comparison",
+                          contour_comparison_figure(
+                              row["e_target"], row["e_pred"],
+                              f"energy - step {step}", "energy"), step)
+    st = cfg.stft
+    if gl is None:
+        gl = GriffinLim(MelSpectrogram(
+            st.sampling_rate, st.filter_length, st.hop_length, st.win_length,
+            st.n_mel_channels, st.mel_fmin, st.mel_fmax, device=device),
+            n_iters=32)
+    logger.log_audio("synth/onestep_audio", gl(syn), st.sampling_rate, step)
+    return gl
 
 
 if __name__ == "__main__":

@@ -21,7 +21,10 @@ mechanical: ``a/b/c/<leaf>`` -> ``a.b.c.<name>``, with these layout rules:
   ``nn.LSTM`` called ``<name>``: its input kernels ``i{i,f,g,o}`` (no bias)
   stack into ``weight_ih_l<k>`` and its hidden kernels ``h{i,f,g,o}`` into
   ``weight_hh_l<k>``, rows in torch's gate order (i, f, g, o); the hidden
-  biases become ``bias_ih_l<k>`` and ``bias_hh_l<k>`` is 0;
+  biases become ``bias_ih_l<k>`` and ``bias_hh_l<k>`` is 0; the cells
+  ``<name>_fwd`` and ``<name>_bwd`` (a flax ``nn.RNN`` pair, the second
+  reversed) are the two directions of the bidirectional one-layer
+  ``nn.LSTM`` called ``<name>`` (``..._l0`` and ``..._l0_reverse``);
 - a weight-normalised conv (``WNConv``) keeps its leaves: ``v`` in the
   flax kernel layout (k..., in/groups, out) -> (out, in/groups, k...),
   ``g`` and ``bias`` as they are.
@@ -71,18 +74,25 @@ def _flax_kernel(module: nn.Module, w: np.ndarray) -> np.ndarray:
     return np.transpose(w, (*range(2, w.ndim), 1, 0))
 
 
+_DIRECTIONS = {"fwd": "", "bwd": "_reverse"}
+
+
 def _lstm_layer(model: nn.Module, cell_path: tuple):
-    """(name of the nn.LSTM, layer index) that the flax cell at
-    ``cell_path`` maps onto, or None when it is no such cell."""
+    """(name of the nn.LSTM, the suffix of its parameters for this cell,
+    ``l<k>`` or ``l0[_reverse]``) that the flax cell at ``cell_path`` maps
+    onto, or None when it is no such cell."""
     name, _, k = cell_path[-1].rpartition("_")
-    if not (name and k.isdigit()):
+    if not (name and (k.isdigit() or k in _DIRECTIONS)):
         return None
     mod_name = ".".join(cell_path[:-1] + (name,))
     try:
         module = model.get_submodule(mod_name)
     except AttributeError:
         return None
-    return (mod_name, int(k)) if isinstance(module, nn.LSTM) else None
+    if not isinstance(module, nn.LSTM) or \
+            module.bidirectional != (k in _DIRECTIONS):
+        return None
+    return mod_name, (f"l{k}" if k.isdigit() else f"l0{_DIRECTIONS[k]}")
 
 
 def flax_to_state_dict(params: dict, model: nn.Module,
@@ -133,10 +143,10 @@ def flax_to_state_dict(params: dict, model: nn.Module,
                                    for g in _GATES], axis=0)
 
         bias_ih = stack("h", "bias")
-        for name, value in ((f"weight_ih_l{k}", stack("i", "kernel")),
-                            (f"weight_hh_l{k}", stack("h", "kernel")),
-                            (f"bias_ih_l{k}", bias_ih),
-                            (f"bias_hh_l{k}", np.zeros_like(bias_ih))):
+        for name, value in ((f"weight_ih_{k}", stack("i", "kernel")),
+                            (f"weight_hh_{k}", stack("h", "kernel")),
+                            (f"bias_ih_{k}", bias_ih),
+                            (f"bias_hh_{k}", np.zeros_like(bias_ih))):
             out[f"{mod_name}.{name}"] = torch.from_numpy(
                 np.ascontiguousarray(value))
 
@@ -196,13 +206,16 @@ def state_dict_to_flax(model: nn.Module,
         if isinstance(m, nn.LSTM):
             H = m.hidden_size
             cell = prefix[:-1]
-            for k in range(m.num_layers):
-                w_ih, w_hh = get(full[f"weight_ih_l{k}"]), \
-                    get(full[f"weight_hh_l{k}"])
-                bias = get(full[f"bias_ih_l{k}"]) + get(full[f"bias_hh_l{k}"])
+            layers = ([(f"l0{sfx}", d) for d, sfx in _DIRECTIONS.items()]
+                      if m.bidirectional else
+                      [(f"l{k}", str(k)) for k in range(m.num_layers)])
+            for k, tag in layers:
+                w_ih, w_hh = get(full[f"weight_ih_{k}"]), \
+                    get(full[f"weight_hh_{k}"])
+                bias = get(full[f"bias_ih_{k}"]) + get(full[f"bias_hh_{k}"])
                 for g, gate in enumerate(_GATES):
                     rows = slice(g * H, (g + 1) * H)
-                    at = (f"{prefix[-1]}_{k}",)
+                    at = (f"{prefix[-1]}_{tag}",)
                     place(cell, at + (f"i{gate}", "kernel"), w_ih[rows].T)
                     place(cell, at + (f"h{gate}", "kernel"), w_hh[rows].T)
                     place(cell, at + (f"h{gate}", "bias"), bias[rows])

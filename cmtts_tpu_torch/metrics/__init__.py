@@ -1,7 +1,7 @@
 """Offline evaluation metric suite (port of ``cmtts_tpu/metrics``): the
 numpy/scipy metrics and their harness, copied; the GE2E speaker-cos
-embedder runs on the port's torch model.  The predicted-MOS nets are not
-ported yet.
+embedder and the predicted-MOS nets (MBNet, LDNet) run on the port's torch
+models.
 """
 
 from cmtts_tpu_torch.metrics.harness import Cal, CalOneModel  # noqa: F401

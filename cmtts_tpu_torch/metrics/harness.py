@@ -1,6 +1,6 @@
-# Copied from cmtts_tpu/metrics/harness.py with the port's imports; speaker_cos takes a
-# device, wer needs a transcriber passed in (none is probed or downloaded), and the
-# predicted-MOS metrics raise until the metric nets are ported.
+# Copied from cmtts_tpu/metrics/harness.py with the port's imports; speaker_cos and the
+# predicted-MOS nets run on the harness's device, and wer needs a transcriber passed in
+# (none is probed or downloaded).
 """Metric harness: ``Cal`` (one results folder) and ``CalOneModel``
 (iterate checkpoint-step folders, CSV accumulation) — reference
 ``all_metrics.py:34-846``.
@@ -222,18 +222,31 @@ class Cal:
 
     # -- predicted MOS (all_metrics.py:506-532) ------------------------------
     def _mos(self):
-        raise NotImplementedError(
-            "mb_mos / ld_mos need the MOS metric nets (MBNet and LDNet of "
-            "cmtts_tpu/metrics/{mos,ldnet}.py), which are not ported yet")
+        if self._mos_tool is None:
+            from cmtts_tpu_torch.metrics.mos import MOSCal
+
+            self._mos_tool = MOSCal(sample_rate=self.sr,
+                                    mb_ckpt=self.mos_ckpt,
+                                    ld_ckpt=self.ld_ckpt,
+                                    ld_config=self.ld_config,
+                                    device=self.device)
+        return self._mos_tool
 
     def compute_mb_mos(self):
-        return self._mos()
+        tool = self._mos()
+        return float(np.mean([tool.get_mb_mos(self._wav(s))
+                              for s in self.syn2label]))
 
     def compute_ld_mos(self):
-        return self._mos()
+        tool = self._mos()
+        return float(np.mean([tool.get_ld_mos(self._wav(s))
+                              for s in self.syn2label]))
 
     def get_target_mos(self, mos_type: str = "mb"):
-        return self._mos()
+        tool = self._mos()
+        fn = tool.get_mb_mos if mos_type == "mb" else tool.get_ld_mos
+        return float(np.mean([fn(self._wav(r))
+                              for r in self.syn2label.values()]))
 
     # -- list dispatch (all_metrics.py:735-739) ------------------------------
     def get_metrics_by_list(self, names: list[str]) -> list[float]:

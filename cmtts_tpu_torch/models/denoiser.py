@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cmtts_tpu_torch.core.config import DenoiserConfig
+from cmtts_tpu_torch.parallel.distributed import CopyToGroup, ReduceFromGroup
 
 
 def mish(x):
@@ -33,6 +34,14 @@ def diffusion_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class ResidualBlock(nn.Module):
+    """One gated block.  With ``tp_group`` set (``parallel.distributed.
+    set_tp_group``) its params are this rank's Megatron shards: the gate and
+    filter convs hold a slice of the output channels, ``out_proj`` the same
+    slice of its input features, and the partial outputs are summed over
+    the group before ``out_proj``'s bias is added."""
+
+    tp_group = None
+
     def __init__(self, channels: int, cond_dim: int, multi_speaker: bool):
         super().__init__()
         C = channels
@@ -50,9 +59,16 @@ class ResidualBlock(nn.Module):
         if self.spk_proj is not None:
             y = y + self.spk_proj(spk)[:, None, :]
         y = y.transpose(1, 2)
+        if self.tp_group is not None:
+            y = CopyToGroup.apply(y, self.tp_group)
         y = (torch.sigmoid(self.conv_gate(y))
              * torch.tanh(self.conv_filt(y))).transpose(1, 2)
-        res_out, skip = self.out_proj(y).chunk(2, dim=-1)
+        if self.tp_group is None:
+            y = self.out_proj(y)
+        else:
+            y = ReduceFromGroup.apply(F.linear(y, self.out_proj.weight),
+                                      self.tp_group) + self.out_proj.bias
+        res_out, skip = y.chunk(2, dim=-1)
         return (res_out + residual) / math.sqrt(2.0), skip
 
 

@@ -11,6 +11,13 @@ standardisation depends on them.
 Sampler math and outputs stay float32; public layouts are JAX's: mel
 (B, L, n_mels), wav (B, L * hop).  ``synthesize_long`` runs the chunks of a
 long text as one batch and splices their waveforms.
+
+Across ranks, ``Synthesizer(dp_group=)`` splits a batch over the data
+group and ``tp_group=`` splits the denoiser's blocks (JAX's
+``Synthesizer(mesh=)``).  Unlike the JAX pipeline, which vocodes with plain
+XLA on a mesh of more than one device because its Pallas kernels have no
+partitioning rule, every rank here owns a whole card and vocodes its rows
+through the MRF kernels.
 """
 
 from __future__ import annotations
@@ -40,6 +47,12 @@ from cmtts_tpu_torch.models.hifigan import (
     pack_generator,
 )
 from cmtts_tpu_torch.models.melgan import MelGANGenerator
+from cmtts_tpu_torch.parallel.distributed import (
+    all_gather_cat,
+    group_rank,
+    group_size,
+    shard_module,
+)
 
 
 def warn_if_bucket_saturated(mel_lens: np.ndarray, mel_bucket: int) -> bool:
@@ -64,6 +77,17 @@ class Synthesizer:
     vocoder's MRF stages compute in ``compute_dtype`` with float32
     accumulation.  ``shapes_run`` holds the (mel bucket, vocode) shapes it
     has run, the keys of the JAX pipeline's compiled graphs.
+
+    ``dp_group``: a call pads the batch to a multiple of the group's size
+    (repeating the last row), synthesizes this rank's contiguous rows on
+    its own device, and all-gathers the results in row order, padding
+    dropped; every rank of the group makes the same call and gets the
+    whole result.  The text and mel buckets are the whole batch's and each
+    row's noise is the row's draw of the one-device call, so that the
+    result is the one-device call's.  ``tp_group``: the denoiser copy
+    keeps this rank's Megatron shards of its blocks and sums their partial
+    outputs over the group (``parallel.distributed.shard_module``); every
+    rank of the group makes the same call on the same rows.
     """
 
     def __init__(self, cfg: Config, model: CMTTS,
@@ -73,13 +97,17 @@ class Synthesizer:
                  text_buckets: Sequence[int] = DEFAULT_TEXT_BUCKETS,
                  mel_buckets: Sequence[int] = DEFAULT_MEL_BUCKETS,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 dp_group=None, tp_group=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device).eval()
         self.denoiser = self.model.denoiser
-        if compute_dtype != torch.float32:
+        if compute_dtype != torch.float32 or tp_group is not None:
             self.denoiser = copy.deepcopy(self.denoiser).to(compute_dtype)
+        if tp_group is not None:
+            shard_module(self.denoiser, tp_group)
+        self.dp_group = dp_group
         self.vocoder = None if vocoder is None else vocoder.to(self.device).eval()
         self.vocoder_packed = (pack_generator(self.vocoder, compute_dtype)
                                if isinstance(vocoder, HiFiGANGenerator)
@@ -172,15 +200,36 @@ class Synthesizer:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         if x_T is not None:
             x_T = x_T.to(self.device, torch.float32)
+        rows = np.arange(B)
+        dp = group_size(self.dp_group)
+        if dp > 1:
+            # this rank's rows of the batch padded to a multiple of dp; a
+            # padded row repeats the last one
+            n = -(-B // dp)
+            r = group_rank(self.dp_group)
+            rows = np.minimum(np.arange(r * n, (r + 1) * n), B - 1)
+            shape = (B, mel_bucket, self.cfg.stft.n_mel_channels)
+            if x_T is None:
+                x_T = torch.randn(shape, generator=generator,
+                                  device=self.device) * self.sched.sigma_max
+            x_T = x_T[rows]
+            noise = (_row_draws(shape, rows, generator, self.device)
+                     if noise is None else [z[rows] for z in noise])
         mel, mel_lens, wav = self.synthesize(
-            torch.from_numpy(texts).to(self.device),
-            torch.from_numpy(src_lens).to(self.device), mel_bucket,
-            speakers=torch.as_tensor(np.asarray(speakers, np.int64),
+            torch.from_numpy(texts[rows]).to(self.device),
+            torch.from_numpy(src_lens[rows]).to(self.device), mel_bucket,
+            speakers=torch.as_tensor(np.asarray(speakers, np.int64)[rows],
                                      device=self.device),
             spker_embeds=torch.as_tensor(
-                np.asarray(spker_embeds, np.float32), device=self.device),
+                np.asarray(spker_embeds, np.float32)[rows],
+                device=self.device),
             d_control=d_control, p_control=p_control, e_control=e_control,
             x_T=x_T, noise=noise, generator=generator)
+        if dp > 1:
+            mel, mel_lens = (all_gather_cat(mel, self.dp_group)[:B],
+                             all_gather_cat(mel_lens, self.dp_group)[:B])
+            if wav is not None:
+                wav = all_gather_cat(wav, self.dp_group)[:B]
         self.shapes_run.add((mel_bucket, self.vocoder is not None))
         mel_lens = mel_lens.cpu().numpy()
         warn_if_bucket_saturated(mel_lens, mel_bucket)
@@ -191,6 +240,13 @@ class Synthesizer:
         """Per-sample waveform trim to mel_len * hop."""
         hop = self.cfg.stft.hop_length
         return [w[: int(n) * hop] for w, n in zip(wav, mel_lens)]
+
+
+def _row_draws(shape, rows, generator, device):
+    """The sampler's later unit normals for ``rows``: each drawn for the
+    whole batch, as the one-device call draws it, then cut to the rows."""
+    while True:
+        yield torch.randn(shape, generator=generator, device=device)[rows]
 
 
 def synthesize_long(synth: Synthesizer, token_chunks, speaker: int = 0,

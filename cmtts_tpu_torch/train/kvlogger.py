@@ -1,10 +1,11 @@
-# Copied from cmtts_tpu/train/kvlogger.py (jax-free) so that the port imports nothing of cmtts_tpu.
+# Copied from cmtts_tpu/train/kvlogger.py (jax-free) so that the port imports nothing of cmtts_tpu;
+# asking for the tensorboard sink where it is not importable raises instead of dropping it.
 """Key-value training logger (reference ``model/cm_tool/logger.py`` semantics).
 
 Supports logkv / logkv_mean accumulation and multi-sink dumping
 (stdout table, CSV, JSONL); sink selection via ``CMTTS_LOG_FORMAT``
 (comma list, default "stdout,csv") and directory via configure().
-TensorBoard is attached when the package is importable.
+The "tensorboard" sink needs ``torch.utils.tensorboard``.
 """
 
 from __future__ import annotations
@@ -40,10 +41,12 @@ class KVLogger:
         if log_dir and "tensorboard" in self.formats:
             try:
                 from torch.utils.tensorboard import SummaryWriter
-
-                self._tb = SummaryWriter(log_dir)
-            except Exception:
-                self._tb = None
+            except ImportError as e:
+                raise RuntimeError(
+                    "CMTTS_LOG_FORMAT asks for tensorboard, which is not "
+                    f"importable here ({e}); drop it from CMTTS_LOG_FORMAT"
+                ) from e
+            self._tb = SummaryWriter(log_dir)
 
     # -- accumulation (logger.py:36-209 semantics) --------------------------
     def logkv(self, key: str, val: Any) -> None:

@@ -9,10 +9,15 @@ Params are dicts ``{name: tensor}`` applied with
 one it was given as it was.  Its draws, in JAX's order (indices, noise,
 dropout), come from one explicit ``torch.Generator`` unless ``indices`` or
 ``noise`` are passed in, as the parity tests pass JAX's.
+
+Across ranks (``dp_group``, ``tp_group``; see
+:mod:`cmtts_tpu_torch.parallel.distributed`) a step computes the one-device
+step over the global batch, as the JAX package's step does on a mesh.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Callable
 
 import numpy as np
@@ -31,6 +36,16 @@ from cmtts_tpu_torch.cm.losses import (
 )
 from cmtts_tpu_torch.core.config import Config
 from cmtts_tpu_torch.models.cmtts import CMTTS
+from cmtts_tpu_torch.parallel.distributed import (
+    all_reduce_,
+    all_reduce_grads,
+    global_count,
+    group_rank,
+    group_size,
+    rank_share,
+    set_tp_group,
+    tp_split_dim,
+)
 from cmtts_tpu_torch.text import sil_phonemes_ids
 from cmtts_tpu_torch.train.state import CMTrainState, RAdam, tree_ema
 
@@ -137,7 +152,8 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
                     microbatch: int | None = None,
                     compute_dtype: torch.dtype | None = None,
                     teacher_sched: KarrasSchedule | None = None,
-                    edm_p_mean: float = -1.2, edm_p_std: float = 1.2):
+                    edm_p_mean: float = -1.2, edm_p_std: float = 1.2,
+                    dp_group=None, tp_group=None):
     """Build the train step ``(state, batch, probs, target_ema,
     generator=None, indices=None, noise=None) -> (state, metrics)``.
 
@@ -155,9 +171,28 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
     :func:`make_apply_fn`; master params, the optimizer, the EMAs and every
     loss stay float32.
 
+    ``dp_group``: ``batch`` is this rank's contiguous share of a global
+    batch of ``dp`` equal shares.  The step draws the global batch's
+    indices and noise from ``generator`` (which must be in the same state
+    on every rank) and keeps its own rows, leaving the generator as the
+    one-device step does; injected ``indices`` and ``noise`` are the
+    global batch's.  Every mean over the batch divides
+    by the global count (:mod:`cmtts_tpu_torch.cm.losses`), the gradients
+    are summed over the group, and the optimizer and EMAs then run alike
+    on every rank.  Dropout masks are drawn on each rank from a generator
+    seeded by the shared generator's state and the rank, so that they
+    differ between ranks; with dropout off the step equals the one-device
+    step.  With
+    ``microbatch`` each rank's share must hold a whole number of rows of
+    every microbatch of JAX's interleave.  ``tp_group`` runs the
+    denoiser's blocks split over the group (``model.denoiser`` is set so,
+    and the state holds this rank's shards, ``tp_shard_state``).
+
     Metrics: ``loss``, ``cm_loss``, ``tts_loss``, ``grad_norm``,
     ``indices``, ``loss_per_sample``, ``cm_i{k}_sum`` / ``cm_i{k}_cnt`` when
-    num_scales - 1 <= 8 (not in edm mode), and the variance-loss terms."""
+    num_scales - 1 <= 8 (not in edm mode), and the variance-loss terms;
+    the scalars are the global batch's, ``indices`` and ``loss_per_sample``
+    this rank's rows."""
     sched = schedule_from_config(cfg)
     teacher_sched = teacher_sched or sched
     sil_ids = tuple(sil_phonemes_ids())
@@ -172,6 +207,11 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
     if teacher_params is not None:
         t_denoise = make_denoise_fn(make_apply_fn(model, compute_dtype),
                                     teacher_sched)
+    set_tp_group(model.denoiser, tp_group)
+    dp, dp_rank = group_size(dp_group), group_rank(dp_group)
+
+    def psum(x):
+        return x if dp_group is None else all_reduce_(x.clone(), dp_group)
 
     def micro_loss(params, target_params, mb, generator):
         b = mb["batch"]
@@ -184,25 +224,28 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
         if training_mode == "edm":
             total, aux = edm_loss(apply_fn, params, mb["x_start"],
                                   mb["noise"], mb["indices"], b, cfg, sched,
-                                  sil_ids, generator)
+                                  sil_ids, generator, dp_group)
         elif training_mode == "progdist":
             total, aux = progdist_loss(apply_fn, params, teacher,
                                        mb["x_start"], mb["noise"],
                                        mb["indices"], num_scales, b, cfg,
-                                       sched, sil_ids, generator)
+                                       sched, sil_ids, generator, dp_group)
         else:
             total, aux = consistency_loss(
                 apply_fn, params, target_params, mb["x_start"], mb["noise"],
                 mb["indices"], num_scales, b, cfg, sched, sil_ids, generator,
-                teacher_denoise=teacher)
-        return (total * mb["weights"]).mean(), total, aux
+                teacher_denoise=teacher, dp_group=dp_group)
+        # the ranks' shares of the global mean: their sum is the global
+        # batch's loss, and their gradients sum to its gradient
+        return (total * mb["weights"]).mean() / dp, total, aux
 
     def step_fn(state: CMTrainState, batch: dict, probs: torch.Tensor,
                 target_ema: float, generator: torch.Generator | None = None,
                 indices: torch.Tensor | None = None,
                 noise: torch.Tensor | None = None):
         x_start = batch["mels"]
-        B, dev = x_start.shape[0], x_start.device
+        dev = x_start.device
+        B = x_start.shape[0] * dp           # the global batch
         if generator is None and (indices is None or noise is None):
             raise ValueError("the step draws its indices and noise from "
                              "a generator; pass one, or both draws")
@@ -211,14 +254,15 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
             if indices is None:
                 z = torch.randn(B, generator=generator, device=dev)
                 indices = torch.exp(edm_p_mean + edm_p_std * z)
-            indices = torch.clamp(indices.to(dev, torch.float32),
-                                  sched.sigma_min, sched.sigma_max)
-            weights = torch.ones(B, device=dev)
+            indices = torch.clamp(
+                rank_share(indices, dp_group).to(dev, torch.float32),
+                sched.sigma_min, sched.sigma_max)
+            weights = torch.ones(indices.shape[0], device=dev)
         else:
             if indices is None:
                 indices = torch.multinomial(probs, B, replacement=True,
                                             generator=generator)
-            indices = indices.to(dev, torch.long)
+            indices = rank_share(indices, dp_group).to(dev, torch.long)
             # unbiased importance weights 1 / (K p_i)
             weights = 1.0 / (probs.shape[0] * probs[indices])
         sv = batch.get("sample_valid")
@@ -227,11 +271,19 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
             # renormalise to the real-sample count over the whole batch,
             # so that the gradient equals the unpadded batch's with or
             # without microbatches
-            weights = weights * sv * (B / torch.clamp(sv.sum(), min=1.0))
+            weights = weights * sv * (B / torch.clamp(
+                global_count(sv.sum(), dp_group), min=1.0))
         if noise is None:
-            noise = torch.randn(x_start.shape, generator=generator,
-                                device=dev)
-        noise = noise.to(dev, torch.float32)
+            noise = torch.randn((B,) + tuple(x_start.shape[1:]),
+                                generator=generator, device=dev)
+        noise = rank_share(noise, dp_group).to(dev, torch.float32)
+        if dp > 1 and generator is not None:
+            # each rank's dropout masks from a generator of its own, seeded
+            # by the shared generator's state (which is left as the
+            # one-device step leaves it) and the rank
+            seed = zlib.crc32(generator.get_state().numpy().tobytes())
+            generator = torch.Generator(dev).manual_seed(
+                (seed << 16) + dp_rank)
         data = {"x_start": x_start, "noise": noise, "indices": indices,
                 "weights": weights, "batch": batch}
 
@@ -240,6 +292,12 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
                 raise ValueError(f"batch size {B} not divisible by "
                                  f"microbatch {microbatch}")
             k = B // microbatch
+            if x_start.shape[0] % k:
+                raise ValueError(
+                    f"a rank's {x_start.shape[0]} rows do not hold a whole "
+                    f"number of rows of each of the {k} interleaved "
+                    f"microbatches of {microbatch} (microbatch must divide "
+                    f"by the data-parallel degree {dp})")
         else:
             k = 1
         names = list(state.params)
@@ -268,7 +326,14 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
                          if auxes[0][key].ndim else
                          torch.stack([a[key] for a in auxes]).mean())
                    for key in auxes[0]}
-        grads = dict(zip(names, grads))
+        grads = all_reduce_grads(dict(zip(names, grads)), dp_group)
+        norms = torch.stack(torch._foreach_norm(list(grads.values())))
+        if tp_group is not None:
+            # a split tensor's norm over its shards
+            split = torch.tensor([tp_split_dim(n) is not None
+                                  for n in grads], device=norms.device)
+            norms = torch.cat([norms[~split], all_reduce_(
+                norms[split] ** 2, tp_group).sqrt()])
 
         new_params, opt_state = opt.update(grads, state.opt_state,
                                            state.params)
@@ -279,11 +344,10 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
             target_params=tree_ema(state.target_params, new_params,
                                    target_ema))
         metrics = {
-            "loss": loss,
-            "cm_loss": (aux["cm_loss"] * weights).mean(),
+            "loss": psum(loss),
+            "cm_loss": psum((aux["cm_loss"] * weights).sum()) / B,
             "tts_loss": aux["tts_loss"],
-            "grad_norm": torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(list(grads.values())))),
+            "grad_norm": torch.linalg.vector_norm(norms),
             "indices": indices,
             "loss_per_sample": total,
         }
@@ -292,8 +356,8 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
             # host can form exact means over any logging window
             for ki in range(num_scales - 1):
                 msk = (indices == ki).float()
-                metrics[f"cm_i{ki}_sum"] = (aux["cm_loss"] * msk).sum()
-                metrics[f"cm_i{ki}_cnt"] = msk.sum()
+                metrics[f"cm_i{ki}_sum"] = psum((aux["cm_loss"] * msk).sum())
+                metrics[f"cm_i{ki}_cnt"] = psum(msk.sum())
         for key in ("pdur", "sdur", "C", "uv", "f0_mean", "f0_std", "energy",
                     "f0"):
             if key in aux:
@@ -309,10 +373,13 @@ def _expand_ph(x_ph, mel2ph):
     return torch.gather(padded, 1, mel2ph)
 
 
-def make_synthesize_step(model: CMTTS, cfg: Config, with_viz: bool = False):
+def make_synthesize_step(model: CMTTS, cfg: Config, with_viz: bool = False,
+                         dp_group=None):
     """Eval-time one-step synthesis from the target params with
     teacher-forced conditioning, and its masked mel L1: ``(target_params,
-    batch, generator=None, x_T=None) -> (mel, mel_loss[, viz])``.
+    batch, generator=None, x_T=None) -> (mel, mel_loss[, viz])``.  Under
+    ``dp_group`` the batch is this rank's rows, x_T its rows of the global
+    batch's draw, and the loss the global batch's.
 
     ``with_viz`` also returns the variance tracks that the training log
     compares: denormalised target and predicted f0 on mel frames (cwt,
@@ -373,15 +440,18 @@ def make_synthesize_step(model: CMTTS, cfg: Config, with_viz: bool = False):
         if x_T is None:
             if generator is None:
                 raise ValueError("pass x_T or a generator to draw it")
-            x_T = torch.randn(mels.shape, generator=generator,
-                              device=mels.device) * sched.sigma_max
+            n = mels.shape[0] * group_size(dp_group)
+            x_T = rank_share(torch.randn(
+                (n,) + tuple(mels.shape[1:]), generator=generator,
+                device=mels.device), dp_group) * sched.sigma_max
         # one step at sigma_max: the conditioning and the denoiser in one
         # teacher-forced forward
         sigma = torch.full((mels.shape[0],), sched.sigma_max,
                            device=mels.device)
         mel, cond_out = denoise(target_params, x_T.to(mels.device), sigma,
                                 batch, None, True)
-        mel_loss = masked_mel_l1(mel, mels, batch["mel_lens"], mels.shape[1])
+        mel_loss = masked_mel_l1(mel, mels, batch["mel_lens"], mels.shape[1],
+                                 dp_group)
         if with_viz:
             return mel, mel_loss, viz_of(cond_out, batch)
         return mel, mel_loss

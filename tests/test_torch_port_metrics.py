@@ -246,10 +246,11 @@ def test_optional_dependencies_fail_closed(results_tree, monkeypatch,
     one = str(results_tree / "results" / "step_4_T1")
     cal = Cal(one, data_type="LJSpeech",
               raw_folder=str(results_tree / "raw"), device="cpu")
-    for name in ("mb_mos", "ld_mos"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for name, net in (("mb_mos", "MBNet"), ("ld_mos", "LDNet")):
+        with pytest.raises(RuntimeError, match=f"{net} checkpoint "
+                                               "unavailable"):
             cal.get_metrics_by_list([name])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(RuntimeError, match="MBNet checkpoint unavailable"):
         cal.get_target_mos()
     with pytest.raises(RuntimeError, match="no ASR given"):
         cal.compute_wer()

@@ -122,7 +122,8 @@ for name in ("audio.stft", "models.speaker", "text.segment",
              "models.melgan", "text.pinyin", "cli.convert_checkpoint",
              "cli.serve", "cli.p_rtf_cm", "models.hifigan_disc",
              "models.init", "train.hifigan_trainer", "train.ge2e_trainer",
-             "cli.train_hifigan", "cli.train_ge2e"):
+             "cli.train_hifigan", "cli.train_ge2e", "parallel.distributed",
+             "metrics.mos", "metrics.ldnet"):
     assert "cmtts_tpu_torch." + name in names, name
 import numpy as np, torch
 from cmtts_tpu_torch.core.config import config_from_dicts
@@ -184,7 +185,17 @@ genc, gp, gtx, gopt = init_ge2e_train(0, 1e-4, "cpu")
 gp, gopt, gloss, _ = make_ge2e_train_step(genc, gtx, 2, 2, GE2ETrainConfig())(
     gp, gopt, torch.rand(4, 20, 40))
 assert np.isfinite(float(gloss))
+from cmtts_tpu_torch.metrics.mos import MBNetMeanNet, MOSCal
+from cmtts_tpu_torch.parallel.distributed import pad_batch_to_multiple
+assert MBNetMeanNet().eval()(torch.rand(1, 5, 257)).shape == (1, 5)
+assert pad_batch_to_multiple({"a": np.zeros((3, 2))}, 2)[1] == 3
 assert not torch.cuda.is_available()
+try:
+    MOSCal()
+except RuntimeError as e:
+    assert "CUDA is not available" in str(e)
+else:
+    raise AssertionError("MOSCal() ran without CUDA")
 try:
     Synthesizer(cfg, model)
 except RuntimeError as e:

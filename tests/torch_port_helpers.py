@@ -480,3 +480,188 @@ def formant_corpus(root, speakers: int = 4, utts: int = 3) -> str:
     main(["--out", str(root), "--speakers", str(speakers),
           "--utts_per_speaker", str(utts), "--holdout", "0"])
     return os.path.join(str(root), "raw")
+
+
+# the two LDNet configurations of tests/test_ldnet.py:23-64 (the published
+# Pretrained-LDNet-ML-2337 config.yml is not in the repository)
+LDNET_V3_RNN = {
+    "combine_mean_score": False, "output_type": "scalar",
+    "use_mean_net": True, "mean_net_type": "rnn", "mean_net_rnn_dim": 8,
+    "mean_net_dnn_dim": 8, "mean_net_output_type": "scalar",
+    "mean_net_range_clipping": True, "num_judges": 6, "judge_emb_dim": 4,
+    "activation": "ReLU", "encoder_type": "mobilenetv3",
+    "encoder_bneck_configs": [
+        [16, 3, 16, 16, True, "RE", 3, 1],
+        [16, 3, 72, 24, False, "RE", 3, 1],
+        [24, 5, 96, 40, True, "HS", 1, 1],
+        [40, 5, 120, 40, True, "HS", 1, 1],
+    ],
+    "encoder_output_dim": 32, "decoder_type": "rnn", "decoder_rnn_dim": 8,
+    "decoder_dnn_dim": 8, "range_clipping": True, "use_mean_listener": True,
+}
+LDNET_V2_FFN = {
+    "combine_mean_score": False, "output_type": "categorical",
+    "use_mean_net": False, "num_judges": 5, "judge_emb_dim": 3,
+    "activation": "ReLU", "encoder_type": "mobilenetv2",
+    "encoder_conv_first_ch": 8, "encoder_conv_t": [1, 2],
+    "encoder_conv_c": [8, 16], "encoder_conv_n": [1, 2],
+    "encoder_conv_s": [3, 3], "encoder_output_dim": 24,
+    "decoder_type": "ffn", "decoder_dnn_dim": 16, "range_clipping": False,
+    "use_mean_listener": False,
+}
+
+
+def seeded_module(module, seed: int):
+    """``module`` with every parameter and BatchNorm statistic drawn from
+    ``seed`` (a fresh module's biases are 0 and its statistics 0 and 1,
+    which would hide a wrong mapping), in eval mode."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=g)
+                    * (0.5 / max(1, p[0].numel()) ** 0.5 if p.ndim > 1
+                       else 0.1))
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.rand(m.running_mean.shape,
+                                                generator=g) * 0.6 - 0.3)
+                m.running_var.copy_(torch.rand(m.running_var.shape,
+                                               generator=g) * 0.8 + 0.7)
+    return module.eval()
+
+
+def flax_trees(module):
+    """(params, batch_stats) of a port module in the flax layout."""
+    import torch
+
+    from cmtts_tpu_torch.convert import state_dict_to_flax
+
+    stats = {}
+    for name, m in module.named_modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            node = stats
+            for part in name.split("."):
+                node = node.setdefault(part, {})
+            node["mean"] = m.running_mean.detach().cpu().numpy()
+            node["var"] = m.running_var.detach().cpu().numpy()
+    return state_dict_to_flax(module), stats
+
+
+def _torch_lstm(sd, prefix, fwd, bwd, rs):
+    """Flax cells of the two directions -> a torch bidirectional LSTM's
+    weights, the summed bias split at random between its two biases."""
+    for suffix, cell in (("", fwd), ("_reverse", bwd)):
+        b = np.concatenate([cell[f"h{g}"]["bias"] for g in "ifgo"])
+        b_hh = rs.randn(*b.shape).astype(np.float32) * 0.1
+        sd[f"{prefix}.weight_ih_l0{suffix}"] = np.concatenate(
+            [cell[f"i{g}"]["kernel"].T for g in "ifgo"])
+        sd[f"{prefix}.weight_hh_l0{suffix}"] = np.concatenate(
+            [cell[f"h{g}"]["kernel"].T for g in "ifgo"])
+        sd[f"{prefix}.bias_ih_l0{suffix}"] = b - b_hh
+        sd[f"{prefix}.bias_hh_l0{suffix}"] = b_hh
+
+
+def _torch_convbn(sd, key, p, s, conv_i=0, bn_i=1):
+    sd[f"{key}.{conv_i}.weight"] = p["conv"]["kernel"].transpose(3, 2, 0, 1)
+    _torch_bn(sd, f"{key}.{bn_i}", p["bn"], s["bn"])
+
+
+def _torch_bn(sd, key, p, s):
+    sd[f"{key}.weight"], sd[f"{key}.bias"] = p["scale"], p["bias"]
+    sd[f"{key}.running_mean"], sd[f"{key}.running_var"] = s["mean"], s["var"]
+
+
+def _torch_state_dict(sd):
+    import torch
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in sd.items()}
+
+
+def mbnet_reference_state_dict(params, stats, seed: int = 0):
+    """The reference MBNet state dict (``mean_net_conv``, ``mean_net_rnn``,
+    ``mean_net_dnn``) whose ``convert_torch_mbnet`` is ``(params,
+    stats)``: the converter inverted."""
+    rs = np.random.RandomState(seed)
+    sd = {}
+    convs = [(0, 1, 2), (6, 7, 8), (12, 13, 14), (18, 19, 20)]
+    for s, idx in enumerate(convs):
+        for j, ci in enumerate(idx):
+            p = params[f"conv_{s}_{j}"]
+            sd[f"mean_net_conv.{ci}.weight"] = p["kernel"].transpose(
+                3, 2, 0, 1)
+            sd[f"mean_net_conv.{ci}.bias"] = p["bias"]
+        _torch_bn(sd, f"mean_net_conv.{4 + 6 * s}", params[f"bn_{s}"],
+                  stats[f"bn_{s}"])
+    _torch_lstm(sd, "mean_net_rnn", params["lstm_fwd"], params["lstm_bwd"],
+                rs)
+    for i, name in ((0, "dnn_0"), (3, "dnn_1")):
+        sd[f"mean_net_dnn.{i}.weight"] = params[name]["kernel"].T
+        sd[f"mean_net_dnn.{i}.bias"] = params[name]["bias"]
+    return _torch_state_dict(sd)
+
+
+def ldnet_reference_state_dict(params, stats, config, seed: int = 0):
+    """The reference LDNet state dict (``encoder.features.<i>``,
+    ``decoder_rnn``, ``decoder_dnn.net``, ``mean_net_*``) whose
+    ``convert_torch_ldnet`` is ``(params, stats)``: the converter
+    inverted."""
+    from cmtts_tpu_torch.metrics.ldnet import _v3_cnf
+
+    rs = np.random.RandomState(seed)
+    sd = {"judge_embedding.weight": params["judge_embedding"]["embedding"]}
+    ep, es = params["encoder"], stats["encoder"]
+    _torch_convbn(sd, "encoder.features.0", ep["first"], es["first"])
+    if config["encoder_type"] == "mobilenetv2":
+        idx = 0
+        for t, n in zip(config["encoder_conv_t"], config["encoder_conv_n"]):
+            for _ in range(n):
+                bp, bs = ep[f"block_{idx}"], es[f"block_{idx}"]
+                base, j = f"encoder.features.{idx + 1}.conv", 0
+                if t != 1:
+                    _torch_convbn(sd, f"{base}.{j}", bp["expand"],
+                                  bs["expand"])
+                    j += 1
+                _torch_convbn(sd, f"{base}.{j}", bp["depthwise"],
+                              bs["depthwise"])
+                sd[f"{base}.{j + 1}.weight"] = \
+                    bp["project"]["kernel"].transpose(3, 2, 0, 1)
+                _torch_bn(sd, f"{base}.{j + 2}", bp["project_bn"],
+                          bs["project_bn"])
+                idx += 1
+        last = idx + 1
+    else:
+        confs = [_v3_cnf(r) for r in config["encoder_bneck_configs"]]
+        for i, (inp, _, expanded, _, use_se, *_) in enumerate(confs):
+            bp, bs = ep[f"block_{i}"], es[f"block_{i}"]
+            base, j = f"encoder.features.{i + 1}.block", 0
+            if expanded != inp:
+                _torch_convbn(sd, f"{base}.{j}", bp["expand"], bs["expand"])
+                j += 1
+            _torch_convbn(sd, f"{base}.{j}", bp["depthwise"],
+                          bs["depthwise"])
+            j += 1
+            if use_se:
+                for fc in ("fc1", "fc2"):
+                    sd[f"{base}.{j}.{fc}.weight"] = \
+                        bp["se"][fc]["kernel"].transpose(3, 2, 0, 1)
+                    sd[f"{base}.{j}.{fc}.bias"] = bp["se"][fc]["bias"]
+                j += 1
+            _torch_convbn(sd, f"{base}.{j}", bp["project"], bs["project"])
+        last = len(confs) + 1
+    _torch_convbn(sd, f"encoder.features.{last}", ep["last"], es["last"])
+    heads = [("decoder_rnn", "dec_cell", "decoder_dnn", "decoder_dnn",
+              config["decoder_type"] == "rnn")]
+    if config["use_mean_net"]:
+        heads.append(("mean_net_rnn", "mean_cell", "mean_net_dnn",
+                      "mean_net_dnn", config["mean_net_type"] == "rnn"))
+    for rnn, cell, dnn, proj, has_rnn in heads:
+        if has_rnn:
+            _torch_lstm(sd, rnn, params[f"{cell}_fwd"], params[f"{cell}_bwd"],
+                        rs)
+        for i, fc in ((0, "fc1"), (3, "fc2")):
+            sd[f"{dnn}.net.{i}.weight"] = params[proj][fc]["kernel"].T
+            sd[f"{dnn}.net.{i}.bias"] = params[proj][fc]["bias"]
+    return _torch_state_dict(sd)
