@@ -105,8 +105,26 @@ exits non-zero):
      --metrics mb_mos ld_mos`` on reference-format MBNet and LDNet files
      written from seeded modules.  Its numbers go on a ``{"parallel":
      {...}}`` line.
-  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6, 7, 8, 9
-     and 10),
+  11. the image-domain consistency model, the legacy GAN objectives and
+     the native npy loader under ``build/chip_smoke_image/`` (removed at
+     the end): the ImageNet-64 UNet of openai/consistency_models'
+     ``cd_imagenet64_l2`` (296M params, random weights from a seed) — a
+     B=2 forward and a onestep sample card against CPU with its zero-init
+     layers redrawn; the B=16 forward (ms, TFLOP/s) and images/s of
+     onestep, multistep (0, 22, 39 of 40) and heun-40; colorization,
+     inpainting and super-resolution at B=4, each output held to its
+     measurement, and card against CPU at a narrower width; one f32 CT step
+     card against CPU (narrow), timed CT steps at B=16, one CD step;
+     ``cli.image_sample`` from an ``.npz`` and from a reference ``.pt``
+     of the same weights, one after the other (both loaders bit-equal to
+     the weights, equal images); the JCU discriminator at the
+     LJSpeech plan on a B=16 x 1024 pair and each GAN loss card against
+     CPU; the native loader's build and a B=32 batch byte-equal to
+     ``np.load``, with ms against serial ``np.load``.  No MRF kernel runs
+     here.  Its numbers, with the card's name and power limit, go on an
+     ``{"image": {...}}`` line.
+  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6, 7, 8, 9,
+     10 and 11),
      the card's name and power limit, and a last line
      ``{"ok": true, "device": {...}}``.
 
@@ -594,6 +612,68 @@ def denoiser_flop(cfg, B: int, L: int) -> int:
     return B * L * frame + B * row
 
 
+def unet_flop(cfg, batch: int) -> int:
+    """FLOP (2 per multiply-add) of one image-UNet forward at ``batch``,
+    from its ``UNetConfig``'s topology: every convolution, dense layer and
+    the attention's two products; norms, activations and the softmax are
+    left out."""
+    H = cfg.image_size
+    time_dim = cfg.model_channels * 4
+    total = 2 * (cfg.model_channels * time_dim + time_dim * time_dim)
+
+    def conv(cin, cout, hw, k=3):
+        return 2 * cin * cout * k * k * hw * hw
+
+    def res(cin, cout, hw_in, up=False, down=False):
+        hw = hw_in * 2 if up else hw_in // 2 if down else hw_in
+        emb = 2 * time_dim * (2 * cout if cfg.use_scale_shift_norm else cout)
+        skip = conv(cin, cout, hw, 1) if cin != cout else 0
+        return conv(cin, cout, hw) + conv(cout, cout, hw) + emb + skip
+
+    def attn(ch, hw):
+        n = hw * hw
+        return 2 * n * ch * 3 * ch + 2 * n * ch * ch + 2 * 2 * n * n * ch
+
+    ch = int(cfg.channel_mult[0] * cfg.model_channels)
+    hw = H
+    total += conv(cfg.in_channels, ch, hw)
+    chans = [ch]
+    ds = 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            out = int(mult * cfg.model_channels)
+            total += res(ch, out, hw)
+            ch = out
+            if ds in cfg.attention_resolutions:
+                total += attn(ch, hw)
+            chans.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            if cfg.resblock_updown:
+                total += res(ch, ch, hw, down=True)
+            elif cfg.conv_resample:
+                total += conv(ch, ch, hw // 2)
+            hw //= 2
+            chans.append(ch)
+            ds *= 2
+    total += 2 * res(ch, ch, hw) + attn(ch, hw)
+    for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
+        for j in range(cfg.num_res_blocks + 1):
+            out = int(mult * cfg.model_channels)
+            total += res(ch + chans.pop(), out, hw)
+            ch = out
+            if ds in cfg.attention_resolutions:
+                total += attn(ch, hw)
+            if level and j == cfg.num_res_blocks:
+                if cfg.resblock_updown:
+                    total += res(ch, ch, hw, up=True)
+                elif cfg.conv_resample:
+                    total += conv(ch, ch, hw * 2)
+                hw *= 2
+                ds //= 2
+    total += conv(ch, cfg.out_channels, hw)
+    return total * batch
+
+
 def instrumented_step(model, cfg, opt, state, batch, probs, gen, cdt):
     """One CT step composed of the train step's own pieces with CUDA events
     between them: (ms by part, loss, indices, noise, the generator's state
@@ -647,11 +727,13 @@ def instrumented_step(model, cfg, opt, state, batch, probs, gen, cdt):
             loss.item(), idx, noise, gstate)
 
 
-def device_busy(fn, reps: int = 3) -> dict:
+def device_busy(fn, reps: int = 3, top: int = 0) -> dict:
     """Run ``fn`` ``reps`` times under ``torch.profiler``: the window's
     CUDA-event ms, the summed duration of the device kernels in it, their
-    share of the window and kernels per call.  ``busy_share`` is None when
-    the profiler records no device activity."""
+    share of the window and kernels per call, and with ``top`` the
+    ``top`` kernel names that took the most device time (ms and launches
+    a call).  ``busy_share`` is None when the profiler records no device
+    activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -670,10 +752,21 @@ def device_busy(fn, reps: int = 3) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     window = start.elapsed_time(end)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return {"window_ms_per_call": window / reps,
-            "kernel_ms_per_call": busy / reps,
-            "busy_share": busy / window if kernels else None,
-            "kernels_per_call": len(kernels) / reps}
+    out = {"window_ms_per_call": window / reps,
+           "kernel_ms_per_call": busy / reps,
+           "busy_share": busy / window if kernels else None,
+           "kernels_per_call": len(kernels) / reps}
+    if top:
+        by_name: dict = {}
+        for e in kernels:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        out["top_kernels"] = [
+            {"name": name[:96], "ms_per_call": ms / reps,
+             "launches_per_call": n / reps}
+            for name, (ms, n) in sorted(by_name.items(),
+                                        key=lambda kv: -kv[1][0])[:top]]
+    return out
 
 
 def training_phase(counters, root: str, device: str = "cuda") -> dict:
@@ -2631,6 +2724,497 @@ def parallel_phase(counters, root: str, device: str = "cuda",
     return out
 
 
+# -- phase 11: the image-domain CM, the GAN objectives, the native loader ----
+
+# cd_imagenet64_l2 as openai/consistency_models' README samples it
+# (--attention_resolutions 32,16,8 --class_cond True --use_scale_shift_norm
+# True --dropout 0.0 --image_size 64 --num_channels 192 --num_head_channels
+# 64 --num_res_blocks 3 --resblock_updown True); the narrow copy is the
+# width of the card-vs-CPU editing and training checks
+IMAGENET64 = dict(image_size=64, num_channels=192, num_res_blocks=3,
+                  attention_resolutions="32,16,8", class_cond=True,
+                  use_scale_shift_norm=True, dropout=0.0,
+                  num_head_channels=64, resblock_updown=True)
+IMAGE_NARROW = dict(IMAGENET64, num_channels=64, num_res_blocks=1,
+                    num_head_channels=32)
+IMAGE_TS, IMAGE_STEPS = (0, 22, 39), 40
+MEASURE_TOL = 1e-5       # an edited image against its projected measurement
+
+
+def image_phase(counters, root: str, device: str = "cuda",
+                tiny: bool = False) -> dict:
+    """Phase 11 under ``build/chip_smoke_image`` (removed at the end): the
+    ImageNet-64 consistency model (``IMAGENET64``, random weights drawn as
+    flax draws them) — a forward at B=2 and a onestep sample card against
+    CPU with the zero-init layers redrawn, the timed forward at B=16
+    (TFLOP/s), images/s of onestep, multistep (0, 22, 39 of 40) and heun
+    40 at B=16, the three editors at B=4 (each output held to its
+    measurement; card against CPU at ``IMAGE_NARROW``), one f32 CT step
+    card against CPU at ``IMAGE_NARROW``, timed CT steps at B=16 and one
+    CD step; ``cli.image_sample`` from a flat ``.npz`` and from a
+    reference ``.pt`` of the same weights (equal images); the JCU
+    discriminator at the LJSpeech plan on a B=16 x 1024-frame pair and
+    each legacy GAN loss card against CPU; the native npy loader on a
+    B=32 batch of phase 6's layout against ``np.load``.  ``tiny`` (a CPU
+    rehearsal) narrows the UNet and skips the timing.  Returns the
+    readings; raises on any failure."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from torch_port_helpers import (  # numpy and torch only
+        redraw_zero_layers,
+        save_flat_npz,
+        unet_reference_state_dict,
+    )
+
+    from cmtts_tpu_torch.cli.image_sample import load_unet_params
+    from cmtts_tpu_torch.cm import gan_losses
+    from cmtts_tpu_torch.cm.image import (
+        _gray_orthogonal_matrix,
+        _to_patches,
+        iterative_colorization,
+        iterative_inpainting,
+        iterative_superres,
+        karras_sample_image,
+        make_image_denoise_fn,
+    )
+    from cmtts_tpu_torch.cm.image_train import make_image_train_step
+    from cmtts_tpu_torch.cm.karras import KarrasSchedule
+    from cmtts_tpu_torch.convert import state_dict_to_flax
+    from cmtts_tpu_torch.core.config import config_from_dicts, load_yaml_configs
+    from cmtts_tpu_torch.data import native_loader
+    from cmtts_tpu_torch.data.dataset import FeatureDataset
+    from cmtts_tpu_torch.data.feature_corpus import write_feature_corpus
+    from cmtts_tpu_torch.models.discriminator import (
+        JCUDiscriminator,
+        init_like_flax as init_jcu,
+    )
+    from cmtts_tpu_torch.models.unet import create_image_unet, init_like_flax
+    from cmtts_tpu_torch.train.state import RAdam, create_train_state
+
+    log("# phase 11: image-domain CM (ImageNet-64), GAN objectives, native "
+        "loader")
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cpu = torch.device("cpu")
+    cuda = dev.type == "cuda"
+    work = os.path.join(root, "build", "chip_smoke_image")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {}
+    for fn in counters:
+        fn.launches = 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def unet_of(widths, seed):
+        w = dict(widths)
+        return init_like_flax(create_image_unet(**w),
+                              torch.Generator().manual_seed(seed)).eval()
+
+    full = (dict(IMAGENET64, num_channels=32, num_res_blocks=1,
+                 num_head_channels=16) if tiny else IMAGENET64)
+    narrow = (dict(full, num_channels=32) if tiny else IMAGE_NARROW)
+    sched = KarrasSchedule(distillation=True)   # consistency_distillation
+    S = full["image_size"]
+
+    # 1. the UNet: parameter count, a forward and a onestep sample card vs CPU
+    t0 = time.perf_counter()
+    unet_cpu = redraw_zero_layers(unet_of(full, 0), 1)
+    unet = copy.deepcopy(unet_cpu).to(dev)
+    n_params = sum(p.numel() for p in unet.parameters())
+    out["unet_params"] = n_params
+    out["unet_build_s"] = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 3, S, S, generator=g)
+    t = torch.tensor([-500.0, 900.0])
+    y = torch.tensor([17, 801])
+    with torch.no_grad():
+        ref = unet_cpu(x, t, y)
+        got = unet(x.to(dev), t.to(dev), y.to(dev)).cpu()
+    out["forward_err"] = check("ImageNet-64 UNet forward B=2 vs CPU", got,
+                               ref, F32_TOL)
+    x_T = torch.randn(2, 3, S, S, generator=g) * sched.sigma_max
+    kw = dict(sampler="onestep", x_T=x_T)
+    ref = karras_sample_image(unet_cpu, (2, 3, S, S), sched,
+                              model_kwargs={"y": y}, device=cpu, **kw)
+    got = karras_sample_image(unet, (2, 3, S, S), sched,
+                              model_kwargs={"y": y.to(dev)}, device=dev,
+                              **kw).cpu()
+    out["onestep_err"] = check("onestep sample B=2 vs CPU", got, ref,
+                               F32_TOL)
+    log(f"  UNet {n_params:,} params (built in {out['unet_build_s']:.1f} s); "
+        f"card vs CPU forward {out['forward_err']:.3e}, onestep "
+        f"{out['onestep_err']:.3e}")
+    del unet_cpu
+
+    # 2. timing at B=16: the forward, then images/s of three samplers
+    if cuda:
+        B = 16
+        xb = torch.randn(B, 3, S, S, device=dev)
+        tb = torch.full((B,), 100.0, device=dev)
+        yb = torch.arange(B, device=dev) * 61 % 1000
+        with torch.no_grad():
+            fwd = timed_steps(lambda _: unet(xb, tb, yb), range(12))
+        flop = unet_flop(unet.cfg, B)
+        out["forward_B16"] = {"median_ms": fwd["median_ms"], "flop": flop,
+                              "tflops": flop / fwd["median_ms"] / 1e9,
+                              "peak_mem_gib": fwd["peak_mem_gib"]}
+        with torch.no_grad():
+            busy = device_busy(lambda: unet(xb, tb, yb), reps=2, top=8)
+        out["forward_B16"]["profile"] = busy
+        log(f"  forward B=16: {fwd['median_ms']:.2f} ms, "
+            f"{flop / 1e12:.3f} TFLOP, {flop / fwd['median_ms'] / 1e9:.2f} "
+            f"TFLOP/s (f32, TF32 off), peak {fwd['peak_mem_gib']:.2f} GiB; "
+            f"profiled: {busy['kernels_per_call']:.0f} kernels, busy "
+            f"{busy['busy_share'] or 0:.3f}; top kernels:")
+        for k in busy.get("top_kernels", []):
+            log(f"    {k['ms_per_call']:8.2f} ms x{k['launches_per_call']:.0f}"
+                f"  {k['name']}")
+        gs = torch.Generator(dev).manual_seed(3)
+        samplers = {}
+        for name, kw, n in (
+                ("onestep", dict(sampler="onestep"), 12),
+                ("multistep_0_22_39", dict(sampler="multistep", ts=IMAGE_TS,
+                                           steps=IMAGE_STEPS), 12),
+                # 79 forwards a call: one timed call, the forward being
+                # warm from the samplers before it
+                ("heun_40", dict(sampler="heun", steps=IMAGE_STEPS), 1)):
+            res = timed_steps(lambda _: karras_sample_image(
+                unet, (B, 3, S, S), sched, model_kwargs={"y": yb},
+                generator=gs, device=dev, **kw), range(n),
+                warm=0 if n == 1 else 2)
+            samplers[name] = {"median_ms": res["median_ms"],
+                              "images_per_s": B * 1e3 / res["median_ms"],
+                              "timed_calls": len(res["ms"]),
+                              "peak_mem_gib": res["peak_mem_gib"]}
+            log(f"  {name} B=16: {res['median_ms']:.1f} ms a call, "
+                f"{B * 1e3 / res['median_ms']:.1f} images/s "
+                f"({len(res['ms'])} timed), peak {res['peak_mem_gib']:.2f} "
+                "GiB")
+        out["samplers_B16"] = samplers
+
+    # 3. editing: three editors at B=4 on the card, each output held to its
+    # measurement (the last sigma is sigma_min), then card vs CPU narrow
+    mask = np.zeros((S, S), np.float32)
+    mask[S // 4: 3 * S // 4, S // 3: 2 * S // 3] = 1.0
+    mask[S // 2 - S // 16: S // 2 + S // 16, :] = 1.0     # an explicit glyph
+    ge = torch.Generator().manual_seed(4)
+    images = torch.rand(4, 3, S, S, generator=ge) * 2 - 1
+    x_e = images + torch.randn(4, 3, S, S, generator=ge) * 2.0
+    draws = [torch.randn(4, 3, S, S, generator=ge)
+             for _ in range(len(IMAGE_TS) - 1)]
+    ye = torch.tensor([1, 2, 3, 4])
+    gray = torch.as_tensor(_gray_orthogonal_matrix()[:, 0],
+                           dtype=torch.float32)
+
+    def measured(editor, z, meas):
+        if editor == "colorization":
+            g_ = gray.to(z.device)
+            return (torch.einsum("bchw,c->bhw", z, g_),
+                    torch.einsum("bchw,c->bhw", meas, g_))
+        if editor == "inpainting":
+            keep = (meas != -1).float()
+            return z * keep, meas * keep
+        return _to_patches(z, 8).mean(-1), _to_patches(meas, 8).mean(-1)
+
+    def edit(model, editor, d):
+        fn = {"colorization": iterative_colorization,
+              "inpainting": iterative_inpainting,
+              "superres": iterative_superres}[editor]
+        extra = dict(mask=mask) if editor == "inpainting" else {}
+        distill = make_image_denoise_fn(model, sched,
+                                        model_kwargs={"y": ye.to(d)})
+        return fn(distill, images.to(d), x_e.to(d), IMAGE_TS, sched,
+                  steps=IMAGE_STEPS, noise=[n.to(d) for n in draws], **extra)
+
+    small_cpu = redraw_zero_layers(unet_of(narrow, 5), 6)
+    small = copy.deepcopy(small_cpu).to(dev)
+    edits = {}
+    for editor in ("colorization", "inpainting", "superres"):
+        sync()
+        t0 = time.perf_counter()
+        res, meas = edit(unet, editor, dev)
+        sync()
+        wall = time.perf_counter() - t0
+        a, b = measured(editor, res, meas)
+        meas_err = check(f"{editor} output vs its measurement", a, b,
+                         dict(rtol=0, atol=MEASURE_TOL))
+        ref = edit(small_cpu, editor, cpu)[0]
+        err = check(f"{editor} narrow card vs CPU",
+                    edit(small, editor, dev)[0].cpu(), ref, F32_TOL)
+        edits[editor] = {"wall_s": wall, "measurement_err": meas_err,
+                         "narrow_err": err}
+        log(f"  {editor} B=4: {wall:.2f} s, output vs measurement "
+            f"{meas_err:.3e}, narrow card vs CPU {err:.3e}")
+    out["edits_B4"] = edits
+
+    # 4. training: one f32 CT step card vs CPU (narrow), timed CT at B=16,
+    # one CD step
+    lr, scales = 1e-4, 18
+    opt = RAdam(lr)
+
+    def step_of(model, teacher=None):
+        return make_image_train_step(model, sched, scales, opt,
+                                     ema_rates=(0.9999,), class_cond=True,
+                                     teacher_params=teacher)
+
+    gt = torch.Generator().manual_seed(7)
+    batch = {"images": torch.rand(4, 3, S, S, generator=gt) * 2 - 1,
+             "labels": torch.tensor([5, 50, 500, 999])}
+    idx = torch.randint(0, scales - 1, (4,), generator=gt)
+    noise = torch.randn(4, 3, S, S, generator=gt)
+    results = []
+    for model, d in ((small_cpu, cpu), (small, dev)):
+        state = create_train_state(
+            {k: v.detach() for k, v in model.named_parameters()}, opt, 1)
+        state, m = step_of(model)(state, to_device(batch, d), 0.95,
+                                  indices=idx.to(d), noise=noise.to(d))
+        results.append((state, m))
+    (s_ref, m_ref), (s_got, m_got) = results
+    ct = {"loss_err": check("image CT loss card vs CPU",
+                            m_got["loss"].cpu(), m_ref["loss"],
+                            TRAIN_F32_TOL),
+          "grad_norm_err": check("image CT grad norm card vs CPU",
+                                 m_got["grad_norm"].cpu(),
+                                 m_ref["grad_norm"], TRAIN_F32_TOL)}
+    for what, a_, b_ in (("params", s_got.params, s_ref.params),
+                         ("ema", s_got.ema_params[0], s_ref.ema_params[0]),
+                         ("target", s_got.target_params,
+                          s_ref.target_params)):
+        ct[f"{what}_err"] = max(
+            check(f"image CT {what} {k} card vs CPU", a_[k].cpu(), b_[k],
+                  TRAIN_PARAM_TOL) for k in b_)
+    log(f"  CT step narrow card vs CPU: loss {ct['loss_err']:.3e}, grad "
+        f"norm {ct['grad_norm_err']:.3e}, params {ct['params_err']:.3e}, "
+        f"EMA {ct['ema_err']:.3e}, target {ct['target_err']:.3e}")
+    out["ct_card_vs_cpu"] = ct
+    del small_cpu, small
+
+    params = {k: v.detach() for k, v in unet.named_parameters()}
+    if cuda:
+        B = 16
+        step = step_of(unet)
+        state = create_train_state(params, opt, 1)
+        gb = torch.Generator(dev).manual_seed(8)
+        tb_ = {"images": torch.rand(B, 3, S, S, device=dev) * 2 - 1,
+               "labels": torch.arange(B, device=dev) * 37 % 1000}
+        box = {"state": state}
+
+        def ct_step(_):
+            box["state"], box["m"] = step(box["state"], tb_, 0.95, gb)
+
+        res = timed_steps(ct_step, range(12))
+        out["ct_B16"] = {k: res[k] for k in ("median_ms", "steps_per_s",
+                                             "peak_mem_gib")}
+        out["ct_B16"]["loss"] = float(box["m"]["loss"])
+        log(f"  CT step B=16 (f32): {res['median_ms']:.1f} ms, "
+            f"{res['steps_per_s']:.2f} steps/s, peak "
+            f"{res['peak_mem_gib']:.2f} GiB, last loss "
+            f"{out['ct_B16']['loss']:.4e}")
+        del box, state
+    Bcd = 16 if cuda else 2
+    cd_state = create_train_state(params, opt, 1)
+    _, m = step_of(unet, teacher=params)(
+        cd_state, {"images": torch.rand(Bcd, 3, S, S, device=dev) * 2 - 1,
+                   "labels": torch.arange(Bcd, device=dev)}, 0.95,
+        torch.Generator(dev).manual_seed(9))
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"image CD step: loss {float(m['loss'])}")
+    out["cd_loss"] = float(m["loss"])
+    log(f"  CD step B={Bcd}: loss {out['cd_loss']:.4e}")
+    del cd_state
+
+    # 5. cli.image_sample twice: from a flat .npz and from a reference .pt
+    # of the same weights.  Both loaders must give the phase's weights bit
+    # for bit; then the two runs must give equal images.
+    tree = state_dict_to_flax(unet)
+    save_flat_npz(os.path.join(work, "unet.npz"), tree)
+    torch.save(unet_reference_state_dict(tree),
+               os.path.join(work, "unet.pt"))
+    del tree
+    want = {k: v.cpu() for k, v in unet.state_dict().items()}
+    for src in ("unet.npz", "unet.pt"):
+        got = load_unet_params(os.path.join(work, src),
+                               create_image_unet(**full), 0).state_dict()
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        if bad or set(got) != set(want):
+            raise AssertionError(f"cli.image_sample's loader of {src} "
+                                 f"changes {bad[:5]} of {len(want)} tensors")
+        del got
+    del want
+    n_samples, bs = (32, 16) if cuda else (4, 2)
+    free_gib = None
+    if cuda:
+        torch.cuda.empty_cache()      # room for the CLI processes
+        free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    # One after the other, never at once: cuDNN picks a convolution's
+    # algorithm among those whose workspace it can allocate, so two
+    # processes that share the card can round differently.
+    errs, walls = {}, {}
+    for src in ("unet.npz", "unet.pt"):
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m", "cmtts_tpu_torch.cli.image_sample",
+             *[a for k, v in full.items() for a in (f"--{k}", str(v))],
+             "--training_mode", "consistency_distillation",
+             "--sampler", "multistep", "--ts",
+             ",".join(map(str, IMAGE_TS)), "--steps", str(IMAGE_STEPS),
+             "--num_samples", str(n_samples), "--batch_size", str(bs),
+             "--model_path", os.path.join(work, src), "--device", device,
+             "--out_dir", os.path.join(work, src.replace(".", "_"))],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            errs[src] = p.communicate(timeout=600)[1]
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        walls[src] = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"cli.image_sample {src} failed:\n"
+                                 f"{errs[src][-3000:]}")
+    arrays = []
+    for src in ("unet.npz", "unet.pt"):
+        path = os.path.join(work, src.replace(".", "_"),
+                            f"samples_{n_samples}x{S}x{S}x3.npz")
+        with np.load(path) as f:
+            arrays.append((f["arr_0"], f["arr_1"]))
+    (a_npz, l_npz), (a_pt, l_pt) = arrays
+    if a_npz.dtype != np.uint8 or a_npz.shape != (n_samples, S, S, 3) or \
+            l_npz.shape != (n_samples,):
+        raise AssertionError(f"cli.image_sample wrote {a_npz.dtype} "
+                             f"{a_npz.shape} and {l_npz.shape} labels")
+    if not (np.array_equal(a_npz, a_pt) and np.array_equal(l_npz, l_pt)):
+        raise AssertionError("cli.image_sample: the .npz and .pt runs differ "
+                             f"(max |diff| {np.abs(a_npz.astype(int) - a_pt.astype(int)).max()})")
+    out["cli"] = {"wall_s": walls, "card_free_gib": free_gib,
+                  "samples": n_samples,
+                  "distinct_labels": int(len(np.unique(l_npz)))}
+    log(f"  cli.image_sample {n_samples} samples (multistep 0,22,39 of 40, "
+        f"batch {bs}) from the .npz in {walls['unet.npz']:.1f} s and the "
+        f".pt in {walls['unet.pt']:.1f} s: both loaders bit-equal to the "
+        "phase's weights, equal images and labels")
+    del unet, params
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 6. the JCU discriminator at the LJSpeech plan and the GAN losses,
+    # card vs CPU
+    dicts = load_yaml_configs("LJSpeech")
+    cfg = config_from_dicts(*dicts)
+    disc_cpu = init_jcu(JCUDiscriminator(cfg),
+                        torch.Generator().manual_seed(10)).eval()
+    disc = copy.deepcopy(disc_cpu).to(dev)
+    Bd, Td = (16, 1024) if cuda else (2, 101)
+    gd = torch.Generator().manual_seed(11)
+    M = cfg.stft.n_mel_channels
+    real, fake, prev = (torch.randn(Bd, Td, M, generator=gd)
+                        for _ in range(3))
+    steps_ = torch.randint(0, 4, (Bd,), generator=gd)
+    with torch.no_grad():
+        feats = {}
+        for name, model, d in (("cpu", disc_cpu, cpu), ("card", disc, dev)):
+            feats[name] = [model(z.to(d), prev.to(d), None, steps_.to(d))
+                           for z in (real, fake)]
+    d_err = 0.0
+    for (rc, ru), (rc_c, ru_c) in zip(feats["card"], feats["cpu"]):
+        for a_, b_ in zip(rc + ru, rc_c + ru_c):
+            d_err = max(d_err, check("JCU feature card vs CPU", a_.cpu(), b_,
+                                     F32_TOL))
+    dcfg = cfg.model.discriminator
+    losses = {}
+    for name in ("cpu", "card"):
+        (rc, ru), (fc, fu) = feats[name]
+        dl = gan_losses.lsgan_d_loss(rc[-1], ru[-1], fc[-1], fu[-1])
+        losses[name] = {
+            "d_real": dl[0], "d_fake": dl[1],
+            "g": gan_losses.lsgan_g_loss(fc[-1], fu[-1]),
+            "fm": gan_losses.feature_matching_loss(
+                rc, ru, fc, fu, dcfg.n_layer + dcfg.n_cond_layer),
+            "mel_l1": gan_losses.weighted_mel_l1(
+                fake.to(rc[0].device), real.to(rc[0].device)),
+            "ssim": gan_losses.ssim_loss(fake.to(rc[0].device),
+                                         real.to(rc[0].device))}
+    loss_err = {k: check(f"GAN loss {k} card vs CPU",
+                         losses["card"][k].cpu().reshape(()),
+                         losses["cpu"][k].reshape(()), TRAIN_F32_TOL)
+                for k in losses["cpu"]}
+    out["gan"] = {"batch": [Bd, Td], "feature_err": d_err,
+                  "loss_err": loss_err}
+    log(f"  JCU discriminator B={Bd} x {Td} frames: features card vs CPU "
+        f"{d_err:.3e}; losses {', '.join(f'{k} {v:.1e}' for k, v in loss_err.items())}")
+    del disc, disc_cpu, feats
+
+    # 7. the native npy loader: build, one B=32 batch of phase 6's layout
+    t0 = time.perf_counter()
+    build_s = native_loader.build_library(force=True)
+    pre = os.path.join(work, "pre")
+    stats = write_feature_corpus(pre, 32, 0, seed=12)
+    p_, m_, t_ = load_yaml_configs("LJSpeech")
+    p_["path"]["preprocessed_path"] = pre
+    ds = FeatureDataset("train.txt", config_from_dicts(p_, m_, t_, stats),
+                        cache_in_ram=False)
+    idx = list(range(32))
+    before = native_loader.native_loads
+    bulk = ds.get_many(idx)
+    rose = native_loader.native_loads - before
+    if rose != 32 * 8:
+        raise AssertionError(f"native loads rose by {rose}, not {32 * 8}")
+    paths = [ds._feat_path(k, i) for i in idx for k in ds._kinds()]
+    raw = ds._native.load(paths)
+    for p_i, a_ in zip(paths, raw):
+        b_ = np.load(p_i)
+        if a_.dtype != b_.dtype or a_.shape != b_.shape or \
+                a_.tobytes() != b_.tobytes():
+            raise AssertionError(f"native load of {p_i} differs from np.load")
+    for i, sample in zip(idx, bulk):
+        ref = ds._load_one(i)
+        for k, v in ref.items():
+            same = (np.array_equal(v, sample[k]) if isinstance(v, np.ndarray)
+                    else v == sample[k])
+            if not same:
+                raise AssertionError(f"get_many sample {i} {k} differs")
+
+    def host_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(times)
+
+    loader = {"build_s": build_s, "files": len(paths),
+              "native_ms": host_ms(lambda: ds._native.load(paths)),
+              "np_load_ms": host_ms(lambda: [np.load(q) for q in paths]),
+              "get_many_ms": host_ms(lambda: ds.get_many(idx)),
+              "serial_getitem_ms": host_ms(lambda: [ds._load_one(i)
+                                                    for i in idx]),
+              "native_loads": native_loader.native_loads}
+    out["native_loader"] = loader
+    log(f"  native loader: built in {build_s:.2f} s; B=32 batch "
+        f"({len(paths)} files) byte-equal to np.load; files "
+        f"{loader['native_ms']:.2f} ms native vs {loader['np_load_ms']:.2f} "
+        f"ms np.load; samples {loader['get_many_ms']:.2f} ms get_many vs "
+        f"{loader['serial_getitem_ms']:.2f} ms serial (host clock, median "
+        "of 5)")
+
+    shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"# phase 11: {out['wall_s']:.1f} s; MRF launches "
+        f"{out['launches']} (none on this path)")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2845,6 +3429,10 @@ def main() -> int:
     parallel = parallel_phase(counters,
                               os.path.dirname(os.path.abspath(__file__)))
 
+    # -- phase 11: the image-domain CM, GAN objectives, native loader ------
+    image = image_phase(counters, os.path.dirname(os.path.abspath(__file__)))
+    image["card"] = smi
+
     # -- phase 4: summary lines --------------------------------------------
     src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
@@ -2862,14 +3450,16 @@ def main() -> int:
                          + data["launches"][name]
                          + served["launches"][name]
                          + trainers["launches"][name]
-                         + parallel["launches"][name]),
+                         + parallel["launches"][name]
+                         + image["launches"][name]),
             "launches_by_phase": {"3": launches[name],
                                   "5": zero_shot["launches"][name],
                                   "6": train["launches"][name],
                                   "7": data["launches"][name],
                                   "8": served["launches"][name],
                                   "9": trainers["launches"][name],
-                                  "10": parallel["launches"][name]},
+                                  "10": parallel["launches"][name],
+                                  "11": image["launches"][name]},
             "design": "mma.sync bf16", "float32_design": "simt f32",
             "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
             "hmma_in_sass": hmma,
@@ -2892,6 +3482,7 @@ def main() -> int:
     print(json.dumps({"serve": served}))
     print(json.dumps({"trainers": trainers}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"image": image}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,15 @@ mechanical: ``a/b/c/<leaf>`` -> ``a.b.c.<name>``, with these layout rules:
   (out, in, kh, kw);
 - ``kernel`` of a ConvTranspose (k, in, out) -> ``ConvTranspose1d.weight``
   (in, out, k) with the taps flipped;
-- ``scale`` (LayerNorm, BatchNorm) and ``embedding`` (Embed) -> ``weight``;
+- ``kernel`` of a width-1 Conv (1, in, out) -> ``Conv1d.weight`` (out, in,
+  1) by the same rule (the image UNet's attention ``qkv`` and
+  ``proj_out``);
+- ``scale`` (LayerNorm, BatchNorm, GroupNorm) and ``embedding`` (Embed)
+  -> ``weight``;
 - a BatchNorm's ``mean`` / ``var``, which flax keeps in the separate
   ``batch_stats`` tree -> ``running_mean`` / ``running_var``;
-- the encoder's fused ``qkv`` Dense (C, 3C) splits into ``q``, ``k``, ``v``;
+- the encoder's fused ``qkv`` Dense (C, 3C) splits into ``q``, ``k``, ``v``
+  (a module that has a ``qkv`` of its own, the UNet's attention, keeps it);
 - a scanned stack (the denoiser's ``blocks``) carries a leading axis of N
   layers, which maps onto an ``nn.ModuleList``;
 - an ``OptimizedLSTMCell`` named ``<name>_<k>`` is layer k of the
@@ -95,6 +100,14 @@ def _lstm_layer(model: nn.Module, cell_path: tuple):
     return mod_name, (f"l{k}" if k.isdigit() else f"l0{_DIRECTIONS[k]}")
 
 
+def _is_module(model: nn.Module, name: str) -> bool:
+    try:
+        model.get_submodule(name)
+    except AttributeError:
+        return False
+    return True
+
+
 def flax_to_state_dict(params: dict, model: nn.Module,
                        batch_stats: dict | None = None) -> dict:
     """Map a flax param tree (and its ``batch_stats``) onto ``model``'s
@@ -102,7 +115,8 @@ def flax_to_state_dict(params: dict, model: nn.Module,
     out: dict[str, torch.Tensor] = {}
 
     def put(path: tuple, leaf: str, value: np.ndarray):
-        if leaf == "kernel" and path[-1] == "qkv":
+        if leaf == "kernel" and path[-1] == "qkv" and not _is_module(
+                model, ".".join(path)):
             for name, part in zip("qkv", np.split(value, 3, axis=-1)):
                 put(path[:-1] + (name,), leaf, part)
             return

@@ -1,5 +1,5 @@
 # Copied from cmtts_tpu/data/dataset.py (jax-free) so that the port imports nothing of cmtts_tpu;
-# samples load serially with np.load (the native npy loader is not ported), and
+# get_many loads through the port's native npy loader (data/native_loader.py), and
 # prefetch_iterator follows cmtts_tpu/data/native_loader.py and also hands the
 # producer's exception to the consumer.
 """Training/inference datasets over preprocessed per-utterance npy features.
@@ -83,20 +83,48 @@ class FeatureDataset:
     def __len__(self) -> int:
         return len(self.text)
 
-    def _feat(self, kind: str, speaker: str, basename: str) -> np.ndarray:
-        return np.load(os.path.join(
-            self.root, kind, f"{speaker}-{kind}-{basename}.npy"))
+    def _feat_path(self, kind: str, idx: int) -> str:
+        return os.path.join(self.root, kind,
+                            f"{self.speaker[idx]}-{kind}-{self.basename[idx]}.npy")
+
+    _BULK_KINDS = ("mel", "pitch", "f0", "energy", "duration", "mel2ph")
+
+    def _kinds(self) -> list[str]:
+        kinds = list(self._BULK_KINDS)
+        if self.pitch_type == "cwt":
+            kinds += ["cwt_spec", "f0cwt_mean_std"]
+        return kinds
 
     def get_many(self, indices) -> list[dict]:
-        """Load several samples; RAM-cached when enabled."""
+        """Load several samples with the native parallel npy loader
+        (serial np.load when it cannot be built); RAM-cached when
+        enabled."""
         if self._ram is not None:
-            for i in indices:
-                if i not in self._ram:
-                    self._ram[i] = self._load_one(i)
+            missing = [i for i in indices if i not in self._ram]
+            if missing:
+                for i, s in zip(missing, self._load_many(missing)):
+                    self._ram[i] = s
             # shallow dict copy: callers may add keys, arrays are shared
             # and never mutated downstream (collate_batch copies)
             return [dict(self._ram[i]) for i in indices]
-        return [self._load_one(i) for i in indices]
+        return self._load_many(indices)
+
+    def _load_many(self, indices) -> list[dict]:
+        from cmtts_tpu_torch.data.native_loader import (
+            NativeNpyLoader,
+            native_available,
+        )
+
+        if not native_available():
+            return [self._load_one(i) for i in indices]
+        if not hasattr(self, "_native"):
+            self._native = NativeNpyLoader()
+        kinds = self._kinds()
+        paths = [self._feat_path(k, i) for i in indices for k in kinds]
+        arrays = self._native.load(paths)
+        return [self._assemble(idx, dict(zip(
+            kinds, arrays[si * len(kinds):(si + 1) * len(kinds)])))
+            for si, idx in enumerate(indices)]
 
     def __getitem__(self, idx: int) -> dict:
         if self._ram is not None:
@@ -106,20 +134,21 @@ class FeatureDataset:
         return self._load_one(idx)
 
     def _load_one(self, idx: int) -> dict:
+        return self._assemble(idx, {k: np.load(self._feat_path(k, idx))
+                                    for k in self._kinds()})
+
+    def _assemble(self, idx: int, feats: dict) -> dict:
         basename = self.basename[idx]
         speaker = self.speaker[idx]
         phone = np.asarray(
             text_to_sequence(self.text[idx], self.cleaners), dtype=np.int32)
-        mel = self._feat("mel", speaker, basename).astype(np.float32)
+        mel = feats["mel"].astype(np.float32)
         if mel.shape[0] == self.cfg.stft.n_mel_channels and \
                 mel.shape[0] != mel.shape[1]:
             mel = mel.T  # stored (n_mels, T) -> (T, n_mels)
-        pitch = self._feat("pitch", speaker, basename)
-        f0_raw = self._feat("f0", speaker, basename)
-        f0, uv = norm_interp_f0(f0_raw, self.cfg.pitch)
-        energy = self._feat("energy", speaker, basename).astype(np.float32)
-        duration = self._feat("duration", speaker, basename).astype(np.int32)
-        mel2ph = self._feat("mel2ph", speaker, basename).astype(np.int32)
+        f0, uv = norm_interp_f0(feats["f0"], self.cfg.pitch)
+        duration = feats["duration"].astype(np.int32)
+        mel2ph = feats["mel2ph"].astype(np.int32)
 
         if len(phone) != len(duration) or (len(mel2ph) and
                                            mel2ph.max() > len(phone)):
@@ -139,17 +168,16 @@ class FeatureDataset:
             "text": phone,
             "raw_text": self.raw_text[idx],
             "mel": mel,
-            "pitch": pitch.astype(np.int32),
+            "pitch": feats["pitch"].astype(np.int32),
             "f0": f0.astype(np.float32),
             "uv": uv.astype(np.float32),
-            "energy": energy,
+            "energy": feats["energy"].astype(np.float32),
             "duration": duration,
             "mel2ph": mel2ph,
         }
         if self.pitch_type == "cwt":
-            sample["cwt_spec"] = self._feat(
-                "cwt_spec", speaker, basename).astype(np.float32)
-            ms = self._feat("f0cwt_mean_std", speaker, basename)
+            sample["cwt_spec"] = feats["cwt_spec"].astype(np.float32)
+            ms = feats["f0cwt_mean_std"]
             sample["f0_mean"] = float(ms[0])
             sample["f0_std"] = float(ms[1])
         if self.load_spker_embed:

@@ -123,7 +123,9 @@ for name in ("audio.stft", "models.speaker", "text.segment",
              "cli.serve", "cli.p_rtf_cm", "models.hifigan_disc",
              "models.init", "train.hifigan_trainer", "train.ge2e_trainer",
              "cli.train_hifigan", "cli.train_ge2e", "parallel.distributed",
-             "metrics.mos", "metrics.ldnet"):
+             "metrics.mos", "metrics.ldnet", "core.rng", "models.unet",
+             "cm.image", "cm.image_train", "cli.image_sample",
+             "models.discriminator", "cm.gan_losses", "data.native_loader"):
     assert "cmtts_tpu_torch." + name in names, name
 import numpy as np, torch
 from cmtts_tpu_torch.core.config import config_from_dicts
@@ -155,7 +157,7 @@ assert len(mels) == 2 and np.isfinite(wav).all()
 from cmtts_tpu_torch.audio.stft import GriffinLim, MelSpectrogram
 assert GriffinLim(MelSpectrogram(n_mel_channels=16, device="cpu"),
                   n_iters=2)(mel[0]).shape == (32 * 256,)
-import tempfile
+import os, tempfile
 from torch_port_helpers import train_batch
 from cmtts_tpu_torch.models.cmtts import init_like_flax
 from cmtts_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
@@ -202,6 +204,25 @@ except RuntimeError as e:
     assert "CUDA is not available" in str(e)
 else:
     raise AssertionError("Synthesizer() ran without CUDA")
+from cmtts_tpu_torch.cli.image_sample import main as image_main
+with tempfile.TemporaryDirectory() as d:
+    out = image_main(["--image_size", "16", "--num_channels", "32",
+                      "--num_res_blocks", "1", "--channel_mult", "1,2",
+                      "--attention_resolutions", "8", "--num_samples", "1",
+                      "--batch_size", "1", "--sampler", "onestep",
+                      "--class_cond", "True", "--device", "cpu",
+                      "--out_dir", d])
+    assert np.load(out)["arr_0"].shape == (1, 16, 16, 3)
+    np.save(os.path.join(d, "a.npy"), np.arange(3))
+    from cmtts_tpu_torch.data.native_loader import NativeNpyLoader
+    assert (NativeNpyLoader(1).load([os.path.join(d, "a.npy")])[0]
+            == np.arange(3)).all()
+try:
+    image_main(["--num_samples", "1"])
+except RuntimeError as e:
+    assert "CUDA is not available" in str(e)
+else:
+    raise AssertionError("cli.image_sample ran without CUDA")
 loaded = [m for m, v in sys.modules.items() if v is not None
           and m.split(".")[0] in ("jax", "jaxlib", "flax", "cmtts_tpu")]
 assert not loaded, loaded

@@ -665,3 +665,75 @@ def ldnet_reference_state_dict(params, stats, config, seed: int = 0):
             sd[f"{dnn}.net.{i}.weight"] = params[proj][fc]["kernel"].T
             sd[f"{dnn}.net.{i}.bias"] = params[proj][fc]["bias"]
     return _torch_state_dict(sd)
+
+
+def redraw_zero_layers(unet, seed: int):
+    """``unet`` with every all-zero parameter (the zero-init ``out_conv``,
+    ``proj_out`` and ``out_conv_f`` that flax's init leaves at 0, and the
+    biases) redrawn nonzero from ``seed``, so that a comparison sees what
+    lies behind them (the attention, each ResBlock's second conv)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in unet.parameters():
+            if not p.any():
+                scale = (0.5 / p[0].numel() ** 0.5 if p.ndim > 1 else 0.05)
+                p.copy_(torch.randn(p.shape, generator=g) * scale)
+    return unet
+
+
+_UNET_RES_SUBS = {"in_norm": "in_layers.0", "in_conv": "in_layers.2",
+                  "emb_proj": "emb_layers.1", "out_norm": "out_layers.0",
+                  "out_conv": "out_layers.3", "skip": "skip_connection",
+                  "norm": "norm", "qkv": "qkv", "proj_out": "proj_out"}
+
+
+def unet_reference_state_dict(tree):
+    """A reference ``UNetModel`` state dict (openai/consistency_models key
+    names and torch layouts) holding the flax tree ``tree``:
+    ``cmtts_tpu.models.unet.convert_torch_unet`` inverted.  Attention's
+    qkv and proj_out are conv1d weights (O, I, 1), plain up/down-sample
+    convs sit under ``.conv`` / ``.op``."""
+    import torch
+
+    sd = {}
+
+    def conv(w):
+        w = np.asarray(w)
+        if w.ndim == 4:
+            return np.transpose(w, (3, 2, 0, 1))
+        return np.transpose(w, (2, 1, 0))
+
+    def leaves(prefix, node, kind):
+        for leaf, v in node.items():
+            if leaf in ("scale", "embedding"):
+                sd[f"{prefix}.weight"] = v
+            elif leaf == "kernel":
+                sd[f"{prefix}.weight"] = v.T if kind == "dense" else conv(v)
+            else:
+                sd[f"{prefix}.{leaf}"] = v
+
+    for name, node in tree.items():
+        if name in ("time_0", "time_2"):
+            leaves(f"time_embed.{name[-1]}", node, "dense")
+        elif name == "label_emb":
+            leaves("label_emb", node, "embed")
+        elif name == "out_norm_f":
+            leaves("out.0", node, "norm")
+        elif name == "out_conv_f":
+            leaves("out.2", node, "conv")
+        else:
+            stem, i, j = name.split("_")
+            block = (f"middle_block.{j}" if stem == "middle"
+                     else f"{stem}_blocks.{i}.{j}")
+            if "kernel" in node:          # a plain conv block
+                sub = ("" if (stem, i) == ("input", "0")
+                       else ".op" if stem == "input" else ".conv")
+                leaves(block + sub, node, "conv")
+                continue
+            for sub, child in node.items():
+                leaves(f"{block}.{_UNET_RES_SUBS[sub]}", child,
+                       "dense" if sub == "emb_proj" else "conv")
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in sd.items()}
