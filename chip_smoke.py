@@ -123,8 +123,25 @@ exits non-zero):
      ``np.load``, with ms against serial ``np.load``.  No MRF kernel runs
      here.  Its numbers, with the card's name and power limit, go on an
      ``{"image": {...}}`` line.
+  12. the quality loop and the quality and bench tools under
+     ``build/chip_smoke_quality/`` (removed at the end): a
+     ``cli.synthesize`` subprocess, started with TF32 on, reads both TF32
+     flags False after its device setup; ``cmtts_tpu_torch/tools/
+     run_quality_pipeline.sh`` at full LJSpeech width and a few steps
+     (40-utterance corpus, 8 CT steps at B=8, T=1/2/4 Griffin-Lim
+     synthesis of the 2 val utterances and their metrics with 8
+     preprocess workers on the card, HiFi-GAN V1 for 4 steps and the
+     vocoder protocol; ``RUN_CD=0`` as the next quality run sets it, the
+     CD CLIs being held on the CPU), then again, starting no stage; ``vocode_dir`` on the card against the
+     CPU; ``cli.train_ge2e`` and ``run_zeroshot_quality.sh`` on a
+     6-speaker corpus (2 held out); ``extend_holdout`` with its
+     determinism check; ``check_ge2e_holdout``; ``diag_pitch`` on the CT
+     checkpoint; ``bench_train`` (B=32 x 768, K=1 and K=8);
+     ``run_serve_bench.sh`` against ``cli.serve`` with the trained
+     HiFi-GAN at concurrency 1 and 8.  Its numbers, with the card's name
+     and power limit, go on a ``{"quality": {...}}`` line.
   4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6, 7, 8, 9,
-     10 and 11),
+     10, 11 and 12, the last in-process only),
      the card's name and power limit, and a last line
      ``{"ok": true, "device": {...}}``.
 
@@ -597,21 +614,6 @@ def write_training_config(work: str) -> str:
     return root
 
 
-def denoiser_flop(cfg, B: int, L: int) -> int:
-    """FLOP of one denoiser forward at B x L frames, from the module's
-    layers: per frame in_proj, per block cond_proj, the k3 gate and filter
-    convs and out_proj, then skip_proj and out_proj; per row the step MLP
-    and each block's t_proj."""
-    C = cfg.model.denoiser.residual_channels
-    N = cfg.model.denoiser.residual_layers
-    H = cfg.model.transformer.encoder_hidden
-    M = cfg.stft.n_mel_channels
-    frame = 2 * M * C + N * (2 * H * C + 2 * 2 * 3 * C * C + 2 * C * 2 * C) \
-        + 2 * C * C + 2 * C * M
-    row = 2 * C * 4 * C * 2 + N * 2 * C * C
-    return B * L * frame + B * row
-
-
 def unet_flop(cfg, batch: int) -> int:
     """FLOP (2 per multiply-add) of one image-UNet forward at ``batch``,
     from its ``UNetConfig``'s topology: every convolution, dense layer and
@@ -792,6 +794,7 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
     )
     from cmtts_tpu_torch.data.feature_corpus import write_feature_corpus
     from cmtts_tpu_torch.models.cmtts import CMTTS, init_like_flax
+    from cmtts_tpu_torch.models.denoiser import denoiser_flop
     from cmtts_tpu_torch.train.loop import batch_to_device, make_train_step
     from cmtts_tpu_torch.train.resample import create_schedule_sampler
     from cmtts_tpu_torch.train.state import RAdam, create_train_state
@@ -2367,8 +2370,9 @@ def parallel_rank(rank: int, world: int, port: int, work: str, device: str,
 
     import torch
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from cmtts_tpu_torch.core.device import cli_device
+
+    cli_device(device)          # float32 as the CLIs compute it: TF32 off
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
@@ -3215,6 +3219,338 @@ def image_phase(counters, root: str, device: str = "cuda",
     return out
 
 
+# -- phase 12: the quality loop and the tools ----------------------------
+
+QUALITY_STAGES = ("corpus", "preprocess", "train_ct", "synth_ct",
+                  "metrics_ct", "vocoder")
+TF32_PROBE = r"""
+import json, sys, torch
+torch.backends.cudnn.allow_tf32 = True
+torch.backends.cuda.matmul.allow_tf32 = True
+from cmtts_tpu_torch.cli.synthesize import main
+main(sys.argv[1:])
+print(json.dumps({"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                  "cuda.matmul.allow_tf32":
+                      torch.backends.cuda.matmul.allow_tf32}))
+"""
+
+
+def run_script(script: str, env: dict, log_path: str, timeout: float):
+    """Run ``cmtts_tpu_torch/tools/<script>`` with ``env`` added to the
+    environment, its output into ``log_path``; -> (stdout, wall s).
+    Raises when it fails."""
+    path = os.path.join("cmtts_tpu_torch", "tools", script)
+    t0 = time.perf_counter()
+    res = subprocess.run(["bash", path], env={**os.environ, **env},
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=timeout)
+    with open(log_path, "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"{script} exited {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    return res.stdout, time.perf_counter() - t0
+
+
+def stage_walls(stdout: str) -> dict:
+    """{stage: s} from a pipeline's ``== [name] start/done HH:MM:SS ==``
+    markers (whole seconds)."""
+    def secs(hms):
+        h, m, s = (int(x) for x in hms.split(":"))
+        return 3600 * h + 60 * m + s
+
+    marks = {(k, n): secs(t) for n, k, t in re.findall(
+        r"== \[(\w+)\] (start|done) +(\d\d:\d\d:\d\d) ==", stdout)}
+    return {n: (marks[("done", n)] - marks[("start", n)]) % 86400
+            for k, n in marks if k == "start" and ("done", n) in marks}
+
+
+def metrics_of(path: str) -> dict:
+    """{section: {metric: value}} of a quality script's metrics file."""
+    out, section = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"-- (.*) --$", line.strip())
+            if m:
+                section = m.group(1)
+                out[section] = {}
+            elif section and re.match(r"^\w+: \S+$", line.strip()):
+                k, v = line.strip().split(": ")
+                out[section][k] = float(v)
+    return out
+
+
+def quality_phase(counters, root: str, device: str = "cuda",
+                  tiny: bool = False, smi: str = "") -> dict:
+    """Phase 12: the quality loop and the quality and bench tools on
+    ``device``, under ``build/chip_smoke_quality`` (removed at the end):
+    a CLI subprocess reports TF32 off; ``run_quality_pipeline.sh`` at full
+    LJSpeech width and a few steps (CT, T=1/2/4 Griffin-Lim synthesis and
+    metrics, a HiFi-GAN V1 trained for a few steps and the vocoder
+    protocol; no CD leg), run again to start no stage; ``vocode_dir`` on the card
+    against the CPU; ``cli.train_ge2e`` and ``run_zeroshot_quality.sh`` on
+    a 6-speaker corpus (2 held out); ``extend_holdout`` (with its
+    determinism check); ``check_ge2e_holdout``; ``diag_pitch`` on the CT
+    checkpoint; ``bench_train``; ``run_serve_bench.sh`` against
+    ``cli.serve`` with the trained HiFi-GAN.  The tools run in-process
+    (``main(argv)``) and launch no MRF kernel; the scripts' CLIs (the
+    server's MRF launches among them) run in subprocesses, which the
+    counters do not see.  ``tiny`` (a CPU rehearsal) narrows the models,
+    skips the vocoder's training (Griffin-Lim serves instead) and shrinks
+    the bench.  Returns the readings; raises on any failure."""
+    import glob
+    import shutil
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from cmtts_tpu_torch.audio.wavio import read_wav
+    from cmtts_tpu_torch.cli.gen_corpus import main as gen_corpus
+    from cmtts_tpu_torch.cli.preprocess import main as preprocess
+    from cmtts_tpu_torch.cli.train_ge2e import main as train_ge2e
+    from cmtts_tpu_torch.tools.bench_train import main as bench_train
+    from cmtts_tpu_torch.tools.check_ge2e_holdout import main as ge2e_gate
+    from cmtts_tpu_torch.tools.diag_pitch import main as diag_pitch
+    from cmtts_tpu_torch.tools.extend_holdout import main as extend_holdout
+    from cmtts_tpu_torch.tools.vocode_dir import main as vocode_dir
+
+    log("# phase 12: the quality loop and the tools (the ported scripts, "
+        "full widths, a few steps)")
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    work = os.path.join(root, "build", "chip_smoke_quality")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if cuda:
+        torch.cuda.empty_cache()     # the scripts' processes share the card
+    # the scripts run `python`: this interpreter, whatever the machine names
+    bin_dir = os.path.join(work, "bin")
+    os.makedirs(bin_dir)
+    with open(os.path.join(bin_dir, "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bin_dir, "python"), 0o755)
+    env = {"PATH": bin_dir + os.pathsep + os.environ["PATH"],
+           "DEVICE": device, "TMPDIR": work}
+    out, walls = {"card": smi}, {}
+    for fn in counters:
+        fn.launches = 0
+
+    # 1. the float32 policy, read inside a CLI subprocess
+    t0 = time.perf_counter()
+    probe = subprocess.run(
+        [sys.executable, "-c", TF32_PROBE, "--mode", "single", "--text",
+         "Printing, in the only sense.", "--vocoder", "griffinlim",
+         "--device", device, "--out_dir", os.path.join(work, "probe")],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0:
+        raise AssertionError(f"TF32 probe:\n{probe.stderr[-3000:]}")
+    flags = json.loads(probe.stdout.strip().splitlines()[-1])
+    log(f"  TF32 inside cli.synthesize (a subprocess, flags set True before "
+        f"its main): {flags}")
+    if any(flags.values()):
+        raise AssertionError(f"a CLI left TF32 on: {flags}")
+    out["tf32_in_cli"] = flags
+    walls["tf32_probe_s"] = time.perf_counter() - t0
+
+    # 2. the quality pipeline, then again: no stage may start
+    qc, voc = os.path.join(work, "qcorp"), os.path.join(work, "voc")
+    ct_steps = 8
+    # N - VAL >= BATCH x group 4: train_cm's megabatch
+    qenv = dict(env, CORPUS=qc, N="12" if tiny else "40",
+                VAL="2", BATCH="2" if tiny else "8",
+                CT_STEPS=str(ct_steps), STEPS="4",
+                RUN_VOCODER="0" if tiny else "1", RUN_CD="0",
+                VOC_OUT=voc,
+                CT_ARGS=f"--log_every {ct_steps}",
+                GEN_ARGS="--tiny" if tiny else "")
+    stdout, walls["quality_pipeline_s"] = run_script(
+        "run_quality_pipeline.sh", qenv, os.path.join(work, "pipeline.log"),
+        1200)
+    stages = [s for s in QUALITY_STAGES if tiny is False or s != "vocoder"]
+    walls["stages_s"] = stage_walls(stdout)
+    if sorted(walls["stages_s"]) != sorted(stages):
+        raise AssertionError(f"pipeline stages {walls['stages_s']}")
+    again, walls["quality_pipeline_again_s"] = run_script(
+        "run_quality_pipeline.sh", qenv,
+        os.path.join(work, "pipeline_again.log"), 300)
+    done = re.findall(r"== \[(\w+)\] already done ==", again)
+    if done != stages or " start " in again:
+        raise AssertionError(f"the second run started a stage:\n{again}")
+    log(f"  run_quality_pipeline.sh: {walls['quality_pipeline_s']:.1f} s, "
+        f"stages {walls['stages_s']}; again: {len(done)} stages already "
+        f"done in {walls['quality_pipeline_again_s']:.1f} s")
+    progress = glob.glob(os.path.join(qc, "output", "log", "LJSpeech_cm",
+                                      "train", "progress.csv"))
+    rows = open(progress[0]).read().splitlines()
+    head = rows[0].split(",")
+    last = dict(zip(head, rows[-1].split(",")))
+    out["ct_loss_last"] = float(last["loss"])
+    out["ct_step_last"] = int(float(last["step"]))
+    out["metrics_ct_gl"] = metrics_of(os.path.join(qc, "metrics_ct_gl.txt"))
+    if not tiny:
+        out["metrics_hifigan"] = metrics_of(os.path.join(voc, "metrics.txt"))
+    for name in ("metrics_ct_gl",) + (() if tiny else ("metrics_hifigan",)):
+        got = out[name]
+        if len(got) != (3 if name != "metrics_hifigan" else 4) or any(
+                set(v) != {"mcd", "mcd_dctmel", "ffe", "ssim", "f0_rmse"}
+                for v in got.values()):
+            raise AssertionError(f"{name}: {got}")
+    if not np.isfinite(out["ct_loss_last"]):
+        raise AssertionError(f"CT loss {out['ct_loss_last']}")
+    log(f"  CT loss at step {out['ct_step_last']}: {out['ct_loss_last']:.4f}; "
+        + "; ".join(f"{k} MCD {v['mcd']:.3f} FFE {v['ffe']:.3f}"
+                    for k, v in out["metrics_ct_gl"].items()))
+
+    # 3. vocode_dir on the card against the CPU (f32, TF32 off)
+    gens = sorted(glob.glob(os.path.join(voc, "hifigan", "hifigan_gen_*.npz")))
+    if tiny:       # no vocoder training in a rehearsal: a seeded narrow one
+        from cmtts_tpu_torch.convert import state_dict_to_flax
+        from cmtts_tpu_torch.models.hifigan import (HiFiGANConfig,
+                                                    HiFiGANGenerator,
+                                                    init_like_flax)
+        sys.path.insert(0, os.path.join(root, "tests"))
+        from torch_port_helpers import save_flat_npz  # numpy and torch only
+
+        gen_path = os.path.join(work, "hifigan_gen_00000000.npz")
+        tree = state_dict_to_flax(init_like_flax(HiFiGANGenerator(
+            HiFiGANConfig(upsample_initial_channel=32)),
+            torch.Generator().manual_seed(0)))
+        save_flat_npz(gen_path, tree)
+    else:
+        gen_path = gens[-1]
+    mels = os.path.join(work, "mels")
+    os.makedirs(mels)
+    for name in sorted(os.listdir(os.path.join(qc, "pre", "mel")))[:2]:
+        shutil.copy(os.path.join(qc, "pre", "mel", name), mels)
+    t0 = time.perf_counter()
+    for dev_ in (device, "cpu"):
+        vocode_dir(["--mel_dir", mels, "--ckpt", gen_path, "--out",
+                    os.path.join(work, f"voc_{dev_}"), "--device", dev_])
+    walls["vocode_dir_card_and_cpu_s"] = time.perf_counter() - t0
+    errs = []
+    for name in sorted(os.listdir(os.path.join(work, f"voc_{device}"))):
+        a = read_wav(os.path.join(work, f"voc_{device}", name))[0]
+        b = read_wav(os.path.join(work, "voc_cpu", name))[0]
+        errs.append(check(f"vocode_dir {name} card vs CPU", torch.from_numpy(a),
+                          torch.from_numpy(b), F32_TOL))
+    if len(errs) != 2:
+        raise AssertionError(f"vocode_dir wrote {len(errs)} wavs")
+    out["vocode_dir_card_vs_cpu_max_err"] = max(errs)
+    log(f"  vocode_dir ({os.path.basename(gen_path)}) card vs CPU on 2 GT "
+        f"mels: max|err| {max(errs):.3e}")
+
+    # 4. GE2E and the zero-shot loop on a 6-speaker corpus, 2 held out
+    zs = os.path.join(work, "zscorp")
+    t0 = time.perf_counter()
+    with redirect_stdout(Tee(sys.stdout)):
+        zcfg = gen_corpus(["--out", zs, "--speakers", "6",
+                           "--utts_per_speaker", "8", "--holdout", "2",
+                           "--val_size", "4", "--batch_size",
+                           "2" if tiny else "4", "--seed", "1234"]
+                          + (["--tiny"] if tiny else []))
+        train_ge2e(["--wav_root", os.path.join(zs, "raw"), "--work_dir",
+                    os.path.join(zs, "ge2e"), "--total_steps", "4",
+                    "--device", device])
+        emb = os.path.join(zs, "ge2e", "ge2e_params.npy")
+        preprocess(["--dataset", "VCTK", "--config_root", zcfg,
+                    "--embedder_ckpt", emb, "--device", device])
+    walls["zs_corpus_ge2e_preprocess_s"] = time.perf_counter() - t0
+    zout = os.path.join(work, "zs_run")
+    # its two evals run on the host's CPU at once: half its cores each
+    threads = str(max(1, (os.cpu_count() or 2) // 2))
+    _, walls["zeroshot_quality_s"] = run_script(
+        "run_zeroshot_quality.sh", dict(env, CORPUS=zs, STEPS="8", OUT=zout,
+                                        OMP_NUM_THREADS=threads),
+        os.path.join(work, "zeroshot.log"), 900)
+    zs_eval = {}
+    for spk in sorted(os.listdir(os.path.join(zs, "raw_holdout"))):
+        with open(os.path.join(zout, f"zs_eval_{spk}.json")) as f:
+            zs_eval[spk] = json.load(f)
+        if zs_eval[spk]["n_synth"] < 1:
+            raise AssertionError(f"zero-shot eval {spk}: {zs_eval[spk]}")
+    out["zeroshot_eval"] = {s: {k: v[k] for k in (
+        "n_synth", "cos_to_target_mean", "cos_to_others_mean",
+        "target_top1_accuracy", "mcd_vs_target_gt")}
+        for s, v in zs_eval.items()}
+    log(f"  run_zeroshot_quality.sh: {walls['zeroshot_quality_s']:.1f} s; "
+        f"{out['zeroshot_eval']}")
+
+    # 5. extend_holdout, then the GE2E gate over the extended holdout
+    t0 = time.perf_counter()
+    with redirect_stdout(Tee(sys.stdout)):
+        extend_holdout(["--out", zs, "--speakers", "6", "--holdout", "2",
+                        "--utts_per_speaker", "8", "--extend_utts_to", "10",
+                        "--extra_speakers", "1", "--seed", "1234"])
+        gate = ge2e_gate(["--embedder_ckpt", emb, "--holdout_root",
+                          os.path.join(zs, "raw_holdout"), "--train_root",
+                          os.path.join(zs, "raw"), "--min_top1", "0",
+                          "--min_margin", "-2", "--out",
+                          os.path.join(work, "ge2e_gate.json"),
+                          "--device", device])
+    walls["extend_holdout_and_gate_s"] = time.perf_counter() - t0
+    with open(os.path.join(work, "ge2e_gate.json")) as f:
+        if json.load(f) != gate or len(gate["speakers"]) != 3:
+            raise AssertionError(f"GE2E gate report {gate}")
+    out["ge2e_gate"] = gate
+
+    # 6. diag_pitch on the CT checkpoint
+    t0 = time.perf_counter()
+    with redirect_stdout(Tee(sys.stdout)):
+        diag = diag_pitch(["--dataset", "LJSpeech", "--config_root",
+                           os.path.join(qc, "config"), "--restore_step",
+                           str(ct_steps), "--out",
+                           os.path.join(work, "diag.json"),
+                           "--device", device])
+    walls["diag_pitch_s"] = time.perf_counter() - t0
+    with open(os.path.join(work, "diag.json")) as f:
+        if json.load(f) != diag:
+            raise AssertionError("diag_pitch's JSON differs from its report")
+    out["diag_pitch"] = diag["variants"]
+
+    # 7. bench_train: one step a call against K = 8 a call, B=32 x 768,
+    # over its default 32 steps (32 calls at K=1, 4 at K=8)
+    t0 = time.perf_counter()
+    bench = bench_train(["--device", device]
+                        + (["--batch", "2", "--t_mel", "32", "--t_txt", "8",
+                            "--K", "2", "--iters", "2"] if tiny else []))
+    walls["bench_train_s"] = time.perf_counter() - t0
+    out["bench_train"] = bench
+    log(f"  bench_train: {bench}")
+
+    # 8. the serving bench against cli.serve
+    serve_json = os.path.join(work, "serve.json")
+    senv = dict(env, CORPUS=qc, STEP=str(ct_steps), PORT=str(free_port()),
+                OUT=serve_json, CONCURRENCY="1 8", REQUESTS="8",
+                PRIME_REQUESTS="8")
+    if tiny:
+        senv["VOC"] = "griffinlim"
+    else:
+        senv.update(VOC="hifigan", VOC_CKPT=gen_path)
+    _, walls["serve_bench_s"] = run_script(
+        "run_serve_bench.sh", senv, os.path.join(work, "serve.log"), 600)
+    with open(serve_json) as f:
+        served = json.load(f)
+    sweep = {r["concurrency"]: r for r in served["sweep"]}
+    if sorted(sweep) != [1, 8] or any(r["errors"] for r in sweep.values()):
+        raise AssertionError(f"serve bench sweep {served['sweep']}")
+    out["serve"] = {"device": served["device"], "vocoder": senv["VOC"],
+                    "sweep": served["sweep"]}
+    log(f"  run_serve_bench.sh ({senv['VOC']}): "
+        + "; ".join(f"c={c} p50 {r['p50']} ms p99 {r['p99']} ms "
+                    f"{r['req_per_s']} req/s {r['batch_hist']}"
+                    for c, r in sweep.items()))
+
+    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    walls["phase_s"] = time.perf_counter() - t_phase
+    out["walls_s"] = walls
+    log(f"  phase 12: {walls['phase_s']:.1f} s; in-process MRF launches "
+        f"{out['launches']} (the scripts' CLIs, cli.serve among them, "
+        "launch theirs in subprocesses)")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3231,12 +3567,11 @@ def main() -> int:
         HiFiGANGenerator,
         hifigan_apply_fused,
     )
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.ops import mrf
     from cmtts_tpu_torch.pipeline import Synthesizer
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev = cli_device("cuda")    # float32 as the CLIs compute it: TF32 off
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3433,6 +3768,11 @@ def main() -> int:
     image = image_phase(counters, os.path.dirname(os.path.abspath(__file__)))
     image["card"] = smi
 
+    # -- phase 12: the quality loop and the tools --------------------------
+    quality = quality_phase(counters,
+                            os.path.dirname(os.path.abspath(__file__)),
+                            smi=smi)
+
     # -- phase 4: summary lines --------------------------------------------
     src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
@@ -3451,7 +3791,8 @@ def main() -> int:
                          + served["launches"][name]
                          + trainers["launches"][name]
                          + parallel["launches"][name]
-                         + image["launches"][name]),
+                         + image["launches"][name]
+                         + quality["launches"][name]),
             "launches_by_phase": {"3": launches[name],
                                   "5": zero_shot["launches"][name],
                                   "6": train["launches"][name],
@@ -3459,7 +3800,12 @@ def main() -> int:
                                   "8": served["launches"][name],
                                   "9": trainers["launches"][name],
                                   "10": parallel["launches"][name],
-                                  "11": image["launches"][name]},
+                                  "11": image["launches"][name],
+                                  "12": quality["launches"][name]},
+            "launches_note": ("phase 12 counts its in-process launches; "
+                              "the scripts' CLIs (cli.serve with HiFi-GAN "
+                              "among them) launch theirs in subprocesses, "
+                              "not counted"),
             "design": "mma.sync bf16", "float32_design": "simt f32",
             "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
             "hmma_in_sass": hmma,
@@ -3483,6 +3829,7 @@ def main() -> int:
     print(json.dumps({"trainers": trainers}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"image": image}))
+    print(json.dumps({"quality": quality}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

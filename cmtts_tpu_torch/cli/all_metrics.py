@@ -53,10 +53,10 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.metrics import Cal, CalOneModel
 
-    device = resolve_device(args.device)
+    device = cli_device(args.device)
     kw = dict(transcriber=args.asr_model, meta_txt=args.meta_txt,
               mos_ckpt=args.mos_ckpt, ld_ckpt=args.ld_ckpt,
               ld_config=args.ld_config, device=device)

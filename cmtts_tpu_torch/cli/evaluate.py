@@ -101,10 +101,10 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     from cmtts_tpu_torch.core.config import load_configs
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.train.checkpoint import restore_checkpoint
 
-    device = resolve_device(args.device)
+    device = cli_device(args.device)
     cfg = load_configs(args.dataset, args.config_root)
     if args.path_tag:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(

@@ -23,6 +23,19 @@ import argparse
 import os
 
 
+# the --tiny model: small enough to train and serve on the CPU
+TINY_WIDTHS = {"transformer": {"encoder_layer": 1, "encoder_hidden": 32,
+                               "decoder_hidden": 32},
+               "denoiser": {"residual_layers": 2, "residual_channels": 32}}
+
+
+def apply_tiny_widths(model: dict) -> dict:
+    """Patch a ``model.yaml`` dict to :data:`TINY_WIDTHS` in place."""
+    for section, widths in TINY_WIDTHS.items():
+        model[section].update(widths)
+    return model
+
+
 def write_config_root(root: str, repo_cfg_dir: str, val_size: int,
                       batch_size: int, tiny: bool = False,
                       max_seq_len: int | None = None,
@@ -51,11 +64,7 @@ def write_config_root(root: str, repo_cfg_dir: str, val_size: int,
     if external_speaker_dim is not None:
         model["external_speaker_dim"] = external_speaker_dim
     if tiny:
-        model["transformer"]["encoder_layer"] = 1
-        model["transformer"]["encoder_hidden"] = 32
-        model["transformer"]["decoder_hidden"] = 32
-        model["denoiser"]["residual_layers"] = 2
-        model["denoiser"]["residual_channels"] = 32
+        apply_tiny_widths(model)
     with open(os.path.join(repo_cfg_dir, "train.yaml")) as f:
         train = yaml.safe_load(f)
     # keep the ckpt/log/result split (./output/<role>/<dataset>) — a bare

@@ -26,10 +26,11 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     from cmtts_tpu_torch.audio.stft import MelSpectrogram
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.metrics.features import load_wav
 
     stft = MelSpectrogram(sampling_rate=args.sampling_rate,
-                          device=args.device)
+                          device=cli_device(args.device))
     os.makedirs(args.out_dir, exist_ok=True)
     n = 0
     for name in sorted(os.listdir(args.wav_dir)):

@@ -96,14 +96,10 @@ def main(argv=None):
 
     from cmtts_tpu_torch.cm.image import karras_sample_image, to_uint8
     from cmtts_tpu_torch.cm.karras import KarrasSchedule
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.models.unet import NUM_CLASSES, create_image_unet
 
-    dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        # float32 as the JAX CLI computes it, not TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    dev = cli_device(args.device)
     unet = create_image_unet(
         args.image_size, args.num_channels, args.num_res_blocks,
         channel_mult=args.channel_mult, learn_sigma=args.learn_sigma,

@@ -44,11 +44,11 @@ def main(argv=None) -> dict:
     from cmtts_tpu_torch.audio.wavio import write_wav
     from cmtts_tpu_torch.cli.synthesize import load_vocoder, restore_cmtts
     from cmtts_tpu_torch.core.config import load_configs
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.data.dataset import TextMetaDataset
     from cmtts_tpu_torch.pipeline import Synthesizer
 
-    device = resolve_device(args.device)
+    device = cli_device(args.device)
     cfg = load_configs(args.dataset, args.config_root)
     model = restore_cmtts(cfg, args.restore_step, "model")
     vocoder, _ = load_vocoder(cfg, None, args.vocoder_ckpt, device)

@@ -39,10 +39,10 @@ def main(argv=None):
         args.workers = os.cpu_count() or 1
 
     from cmtts_tpu_torch.core.config import load_configs
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.data.preprocessor import Preprocessor
 
-    device = resolve_device(args.device)
+    device = cli_device(args.device)
     cfg = load_configs(args.dataset, args.config_root)
     embedder = None
     if cfg.model.multi_speaker and cfg.model.speaker_embedder != "none":

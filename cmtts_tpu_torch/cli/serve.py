@@ -495,10 +495,10 @@ def build_service(argv=None) -> tuple[TTSService, argparse.Namespace]:
 
     from cmtts_tpu_torch.cli.synthesize import load_vocoder, restore_cmtts
     from cmtts_tpu_torch.core.config import load_configs
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.pipeline import Synthesizer
 
-    device = resolve_device(args.device)
+    device = cli_device(args.device)
     cfg = load_configs(args.dataset, args.config_root)
     model = restore_cmtts(cfg, args.restore_step, args.params_role)
     vocoder, _ = load_vocoder(cfg, args.vocoder, args.vocoder_ckpt, device)

@@ -345,11 +345,11 @@ def main(argv=None):
                              "installed") from None
 
     from cmtts_tpu_torch.core.config import load_configs
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.pipeline import Synthesizer
     from cmtts_tpu_torch.train.checkpoint import read_run_config
 
-    device = resolve_device(args.device)
+    device = cli_device(args.device)
     cfg = load_configs(args.dataset, args.config_root)
     path_tag = f"_{args.path_tag}" if args.path_tag else ""
     if path_tag:

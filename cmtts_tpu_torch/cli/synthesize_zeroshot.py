@@ -74,10 +74,10 @@ def main(argv=None):
         parser.error("--restore_step and --params exclude each other")
 
     from cmtts_tpu_torch.core.config import load_configs
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.pipeline import Synthesizer
 
-    device = resolve_device(args.device)
+    device = cli_device(args.device)
     cfg = load_configs(args.dataset, args.config_root)
     mc = cfg.model
     if not mc.multi_speaker or mc.speaker_embedder == "none":

@@ -144,7 +144,7 @@ def main(argv=None) -> dict:
 
     from cmtts_tpu_torch.cm.karras import schedule_from_config
     from cmtts_tpu_torch.core.config import load_configs
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.data.dataset import (
         FeatureDataset,
         batch_iterator,
@@ -186,7 +186,7 @@ def main(argv=None) -> dict:
     )
 
     own_group = "RANK" in os.environ and not dist.is_initialized()
-    rank, world, device = init_distributed(resolve_device(args.device))
+    rank, world, device = init_distributed(cli_device(args.device))
     mesh = make_mesh(args.tp)
     lead = rank == 0
     cfg = load_configs(args.dataset, args.config_root)

@@ -39,14 +39,14 @@ def main(argv=None) -> dict:
     if (args.wav_root is None) == (args.partials_root is None):
         parser.error("exactly one of --wav_root / --partials_root")
 
-    from cmtts_tpu_torch.core.device import resolve_device
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.train.ge2e_trainer import (
         GE2ETrainConfig,
         SpeakerVerificationDataset,
         train_ge2e,
     )
 
-    device = resolve_device(args.device)
+    device = cli_device(args.device)
     partials = args.partials_root
     if partials is None:
         partials = os.path.join(args.work_dir, "partials")

@@ -54,12 +54,14 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
+    from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.models.hifigan import HiFiGANConfig
     from cmtts_tpu_torch.train.hifigan_trainer import (
         HiFiGANTrainConfig,
         train_hifigan,
     )
 
+    device = cli_device(args.device)
     cfg = HiFiGANTrainConfig(
         segment_size=args.segment_size, batch_size=args.batch_size,
         learning_rate=args.lr, lambda_mel=args.lambda_mel,
@@ -73,7 +75,7 @@ def main(argv=None) -> dict:
                          save_every=args.save_every, resume=args.resume,
                          max_files=args.max_files,
                          finetune_mel_dir=args.finetune_mel_dir,
-                         init_gen_npz=args.init_gen_npz, device=args.device)
+                         init_gen_npz=args.init_gen_npz, device=device)
 
 
 def disc_config(scale: int):

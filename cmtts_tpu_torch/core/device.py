@@ -14,3 +14,17 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def cli_device(device: str | torch.device | None = None) -> torch.device:
+    """:func:`resolve_device` for a command-line entry point, which first
+    makes float32 convolutions and matmuls compute in float32, as the JAX
+    CLIs compute them: PyTorch runs cuDNN's float32 convolutions in TF32
+    (10-bit mantissa inputs) unless told otherwise.  Every CLI of
+    :mod:`cmtts_tpu_torch.cli` that takes ``--device`` calls this and only
+    this (``tests/test_torch_port_precision.py`` holds them to it)."""
+    # the legacy flags: torch warns when they and ``fp32_precision`` are
+    # mixed in one process, and every release the port runs on takes them
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return resolve_device(device)

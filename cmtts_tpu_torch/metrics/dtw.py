@@ -1,4 +1,6 @@
-# Copied from cmtts_tpu/metrics/dtw.py (jax-free) so that the port imports nothing of cmtts_tpu.
+# Port of cmtts_tpu/metrics/dtw.py (jax-free): the same DP, costs and tie
+# order, with the cell loops over Python floats and the FastDTW window
+# built in numpy, so that a waveform alignment takes seconds, not minutes.
 """Dynamic time warping: replacements for the reference's ``fastdtw``
 (path) and ``librosa.sequence.dtw`` (accumulated cost).
 
@@ -6,10 +8,13 @@
 FastDTW algorithm (Salvador & Chan 2007: recursive 2x coarsening +
 radius-constrained banded DP) for long ones — the reference aligns raw
 waveforms with fastdtw (all_metrics.py:281-304), where exact DP would be
-O(22050^2).
+O(22050^2).  Every cost is the same float64 sum as the JAX package's, and
+ties go to the first of (diagonal, up, left), so the paths are equal.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -23,9 +28,9 @@ def _pairwise_dist(x: np.ndarray, y: np.ndarray) -> np.ndarray:
 
 def _exact_path(x: np.ndarray, y: np.ndarray) -> list[tuple[int, int]]:
     N, M = len(x), len(y)
-    d = _pairwise_dist(x, y)
-    D = np.full((N + 1, M + 1), np.inf)
-    D[0, 0] = 0.0
+    d = _pairwise_dist(x, y).tolist()
+    inf = math.inf
+    D = [[0.0] + [inf] * M] + [[inf] * (M + 1) for _ in range(N)]
     for i in range(1, N + 1):
         row = D[i]
         up = D[i - 1]
@@ -37,56 +42,70 @@ def _exact_path(x: np.ndarray, y: np.ndarray) -> list[tuple[int, int]]:
     while i > 1 or j > 1:
         path.append((i - 1, j - 1))
         steps = [(i - 1, j - 1), (i - 1, j), (i, j - 1)]
-        costs = [D[a, b] if a >= 1 and b >= 1 else np.inf for a, b in steps]
+        costs = [D[a][b] if a >= 1 and b >= 1 else inf for a, b in steps]
         i, j = steps[int(np.argmin(costs))]
     path.append((0, 0))
     return path[::-1]
 
 
-def _banded_path(x: np.ndarray, y: np.ndarray,
-                 window: list[tuple[int, int]]) -> list[tuple[int, int]]:
-    """DP restricted to ``window`` cells (sorted lexicographically)."""
-    INF = np.inf
-    D: dict[tuple[int, int], float] = {(-1, -1): 0.0}
-    P: dict[tuple[int, int], tuple[int, int]] = {}
-    for i, j in window:
-        dist = float(np.linalg.norm(x[i] - y[j]))
-        best, arg = INF, None
-        for pi, pj in ((i - 1, j - 1), (i - 1, j), (i, j - 1)):
-            v = D.get((pi, pj), INF)
+def _cell_dist(x: np.ndarray, y: np.ndarray, I: np.ndarray,
+               J: np.ndarray) -> list[float]:
+    """``np.linalg.norm(x[i] - y[j])`` (``sqrt(v @ v)``) of every window
+    cell, bit for bit: one vector op for one feature, a row dot each
+    otherwise."""
+    v = x[I] - y[J]
+    if v.shape[1] == 1:
+        return np.sqrt(v[:, 0] * v[:, 0]).tolist()
+    return [math.sqrt(r.dot(r)) for r in v]
+
+
+def _banded_path(x: np.ndarray, y: np.ndarray, I: np.ndarray,
+                 J: np.ndarray) -> list[tuple[int, int]]:
+    """DP restricted to the window cells ``(I[k], J[k])`` (sorted
+    lexicographically).  A cell is keyed ``(i + 1) * S + j + 1`` with
+    ``S = len(y) + 1``, so that ``(-1, -1)`` is 0 and a column -1 is no
+    cell."""
+    S = len(y) + 1
+    inf = math.inf
+    D = {0: 0.0}
+    P = {}
+    get = D.get
+    for i, j, dist in zip(I.tolist(), J.tolist(), _cell_dist(x, y, I, J)):
+        k = (i + 1) * S + j + 1
+        best, arg = inf, None
+        for p in (k - S - 1, k - S, k - 1):        # diagonal, up, left
+            v = get(p, inf)
             if v < best:
-                best, arg = v, (pi, pj)
-        if (i, j) == (0, 0):
-            best, arg = 0.0, (-1, -1)
+                best, arg = v, p
         if arg is None:
             continue
-        D[(i, j)] = best + dist
-        P[(i, j)] = arg
+        D[k] = best + dist
+        P[k] = arg
     # backtrack
-    node = (len(x) - 1, len(y) - 1)
+    node = len(x) * S + len(y)
     path = []
-    while node != (-1, -1):
-        path.append(node)
+    while node != 0:
+        path.append((node // S - 1, node % S - 1))
         node = P[node]
     return path[::-1]
 
 
 def _expand_window(path: list[tuple[int, int]], n: int, m: int,
-                   radius: int) -> list[tuple[int, int]]:
-    cells = set()
-    for i, j in path:
-        for a in range(-radius, radius + 1):
-            for b in range(-radius, radius + 1):
-                cells.add((i + a, j + b))
-    # project to the finer resolution (each coarse cell -> 2x2 fine cells)
-    fine = set()
-    for i, j in cells:
-        for a in (0, 1):
-            for b in (0, 1):
-                ii, jj = 2 * i + a, 2 * j + b
-                if 0 <= ii < n and 0 <= jj < m:
-                    fine.add((ii, jj))
-    return sorted(fine)
+                   radius: int) -> tuple[np.ndarray, np.ndarray]:
+    """The coarse path widened by ``radius`` and projected to the finer
+    resolution (each coarse cell -> 2x2 fine cells), clipped to n x m ->
+    the cells' rows and columns, sorted lexicographically."""
+    p = np.asarray(path, np.int64)
+    r = np.arange(-radius, radius + 1)
+    ci = (p[:, 0, None] + r[None, :])[:, :, None].repeat(len(r), 2)
+    cj = (p[:, 1, None] + r[None, :])[:, None, :].repeat(len(r), 1)
+    two = np.array([0, 1])
+    fi = (2 * ci.reshape(-1, 1) + two[None, :])[:, :, None].repeat(2, 2)
+    fj = (2 * cj.reshape(-1, 1) + two[None, :])[:, None, :].repeat(2, 1)
+    fi, fj = fi.reshape(-1), fj.reshape(-1)
+    keep = (fi >= 0) & (fi < n) & (fj >= 0) & (fj < m)
+    cells = np.unique(fi[keep] * m + fj[keep])
+    return cells // m, cells % m
 
 
 def _fastdtw(x: np.ndarray, y: np.ndarray, radius: int = 1) -> list[tuple[int, int]]:
@@ -99,8 +118,7 @@ def _fastdtw(x: np.ndarray, y: np.ndarray, radius: int = 1) -> list[tuple[int, i
         return (a[: 2 * k : 2] + a[1 : 2 * k : 2]) / 2.0
 
     coarse_path = _fastdtw(half(x), half(y), radius)
-    window = _expand_window(coarse_path, n, m, radius)
-    return _banded_path(x, y, window)
+    return _banded_path(x, y, *_expand_window(coarse_path, n, m, radius))
 
 
 def dtw_path(x: np.ndarray, y: np.ndarray,

@@ -103,3 +103,20 @@ class Denoiser(nn.Module):
             skips.append(skip)
         h = torch.stack(skips).sum(0) / math.sqrt(len(self.blocks))
         return self.out_proj(torch.relu(self.skip_proj(h)))
+
+
+def denoiser_flop(cfg, B: int, L: int) -> int:
+    """FLOP (2 per multiply-add) of one denoiser forward at B x L frames,
+    from the module's layers: per frame in_proj, per block cond_proj, the
+    k3 gate and filter convs and out_proj, then skip_proj and out_proj; per
+    row the step MLP and each block's t_proj.  A CT/CD train step runs the
+    denoiser forward for the student and the target and backward (two
+    forwards' worth) once: 4x this."""
+    C = cfg.model.denoiser.residual_channels
+    N = cfg.model.denoiser.residual_layers
+    H = cfg.model.transformer.encoder_hidden
+    M = cfg.stft.n_mel_channels
+    frame = 2 * M * C + N * (2 * H * C + 2 * 2 * 3 * C * C + 2 * C * 2 * C) \
+        + 2 * C * C + 2 * C * M
+    row = 2 * C * 4 * C * 2 + N * 2 * C * C
+    return B * L * frame + B * row

@@ -95,6 +95,10 @@ def _core_cases(wavs, tmp):
         "dtw.dtw_path:banded": (rs.randn(700, 2), rs.randn(650, 2)),
         "dtw.dtw_cost": (rs.randn(3, 40), rs.randn(3, 30),
                          lambda x, y: float(np.abs(x - y).sum())),
+        # quantized samples: many equal costs, so the tie order shows
+        "dtw.dtw_path:ties": (rs.randint(0, 4, (3000, 1)) / 4.0,
+                              rs.randint(0, 4, (2800, 1)) / 4.0),
+        "dtw.dtw_path:wide": (rs.randn(700, 13), rs.randn(760, 13)),
     }
 
 
@@ -108,7 +112,8 @@ CORE_CASES = [
     "features.mfcc", "features.mcep_dctmel", "features.cheaptrick_envelope",
     "features.sptk_mcep_from_spectrum", "features.freqt", "features.mcep",
     "features.mfcc_normalized", "features.trim_silence", "yin.compute_yin",
-    "dtw.dtw_path:banded", "dtw.dtw_cost",
+    "dtw.dtw_path:banded", "dtw.dtw_cost", "dtw.dtw_path:ties",
+    "dtw.dtw_path:wide",
 ]
 
 

@@ -125,7 +125,10 @@ for name in ("audio.stft", "models.speaker", "text.segment",
              "cli.train_hifigan", "cli.train_ge2e", "parallel.distributed",
              "metrics.mos", "metrics.ldnet", "core.rng", "models.unet",
              "cm.image", "cm.image_train", "cli.image_sample",
-             "models.discriminator", "cm.gan_losses", "data.native_loader"):
+             "models.discriminator", "cm.gan_losses", "data.native_loader",
+             "tools.vocode_dir", "tools.extend_holdout",
+             "tools.check_ge2e_holdout", "tools.zeroshot_eval",
+             "tools.diag_pitch", "tools.bench_train", "tools.bench_serve"):
     assert "cmtts_tpu_torch." + name in names, name
 import numpy as np, torch
 from cmtts_tpu_torch.core.config import config_from_dicts

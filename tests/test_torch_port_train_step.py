@@ -54,7 +54,9 @@ class Pair:
     and the batch in both layouts."""
 
     def __init__(self, mode="consistency_training", lengths=(8, 5),
-                 seed=0, **cm):
+                 seed=0, port_init=False, **cm):
+        """``port_init`` draws the params with the port's init_like_flax
+        (no flax init to compile) instead of flax's init."""
         from cmtts_tpu.models.cmtts import CMTTS as JCMTTS
         from cmtts_tpu.train.state import create_train_state as jcreate
         from cmtts_tpu.train.state import make_optimizer as jopt
@@ -67,8 +69,16 @@ class Pair:
                         denoiser=dict(residual_channels=32,
                                       residual_layers=2))
         dicts[2]["cm"] = dict(lr=1e-3, training_mode=mode, **cm)
+        self.dicts = dicts
         self.jcfg, self.tcfg = configs_from(dicts)
-        self.params = flax_cm_params(self.jcfg)
+        if port_init:
+            from cmtts_tpu_torch.convert import state_dict_to_flax
+            from cmtts_tpu_torch.models.cmtts import CMTTS, init_like_flax
+
+            self.params = state_dict_to_flax(init_like_flax(
+                CMTTS(self.tcfg), torch.Generator().manual_seed(seed)))
+        else:
+            self.params = flax_cm_params(self.jcfg)
         self.jmodel = JCMTTS(self.jcfg)
         self.tx = jopt(1e-3, self.jcfg.train.cm.weight_decay)
         self.jstate = jcreate(jax.tree_util.tree_map(jnp.asarray, self.params),
