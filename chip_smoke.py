@@ -4,26 +4,30 @@ hold each against its plain PyTorch version on the card, then synthesise
 at full LJSpeech width through the port's ``Synthesizer``, and zero-shot
 at full VCTK width with both speaker embedders and every sampler.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 1 and 2 only
 
 Phases (none catches its own failure; any mismatch raises and the script
 exits non-zero):
   1. device, power limit, torch/CUDA versions, kernel build time, each
      kernel's registers and stack (``cuobjdump -res-usage``) and the count
-     of tensor-core (HMMA) instructions in the bf16 kernel's SASS, which
-     must not be 0;
+     of tensor-core (HMMA) instructions in the SASS: not 0 in the bf16
+     kernel, 0 in every float32 one;
   2. kernel vs plain version on the card: edge shapes at every width of
      the kernels (C = 16, whose bf16 passes are 16 channels wide, to 256)
-     in float32 (the SIMT kernel) and bfloat16 (the tensor-core kernel),
-     each held to its plain version within about a rounding of its type,
-     the shapes of a 768-frame mel, and the shapes of the batch-8,
-     1024-frame main path
-     (timed: kernel, plain, bound, achieved TFLOP/s of useful work and of
-     the MMA work the kernel issues);
+     in float32 (the SIMT conv kernels) and bfloat16 (the tensor-core
+     kernel), each held to its plain version within about a rounding of
+     its type, the shapes of a 768-frame mel (float32 timed: the latency
+     view), and the shapes of the batch-8, 1024-frame main path in both
+     types (timed: kernel, plain, the bound at the type's own peak, the
+     share of it reached, TFLOP/s of useful work and, in bf16, of the MMA
+     work the kernel issues);
   3. synthesis (random weights from a seed): B=1 from text at T=1, checked
      against the float32 acoustic model on the CPU and the plain vocoder on
      the card; B=8 at 96 tokens (mel bucket 1024) at T=1 and T=2, with the
-     real-time factor.  Launch counters are zeroed before this phase.
+     real-time factor; B=1 in float32 (the float32 kernels' users), its
+     wav against the plain float32 vocoder.  Launch counters are zeroed
+     before this phase.
   5. zero-shot and samplers at full VCTK width (random weights from a
      seed): a 3 s reference wav embedded by DeepSpeaker and by GE2E on the
      card, each against the same embedder on the CPU (float32, TF32 off);
@@ -140,8 +144,9 @@ exits non-zero):
      ``run_serve_bench.sh`` against ``cli.serve`` with the trained
      HiFi-GAN at concurrency 1 and 8.  Its numbers, with the card's name
      and power limit, go on a ``{"quality": {...}}`` line.
-  4. a ``{"kernels": [...]}`` line (launches of phases 3, 5, 6, 7, 8, 9,
-     10, 11 and 12, the last in-process only),
+  4. a ``{"kernels": [...]}`` line, an entry for each entry point and
+     type (bf16: launches of phases 3, 5, 6, 7, 8, 9, 10, 11 and 12, the
+     last in-process only; float32: phase 3's float32 call),
      the card's name and power limit, and a last line
      ``{"ok": true, "device": {...}}``.
 
@@ -160,6 +165,7 @@ import time
 
 KS, DS = (3, 7, 11), (1, 3, 5)
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 on CUDA cores (the same)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 F32_TOL = dict(rtol=2e-4, atol=2e-4)    # reassociation only
 # a bf16 kernel makes its plain version's roundings, so the two differ by
@@ -204,7 +210,7 @@ def issued_flop(mrf, B, C, L, head: bool, pass_tiles: int = 0) -> int:
     and the rounding to 16 positions add.  0 means the kernel's own."""
     pass_tiles = pass_tiles or mrf.PASS_TILES
     pad = 3 if head else 0
-    tile, _ = mrf.plan_tile(C, L, 2, mrf.receptive_radius(KS, DS) + pad, pad)
+    tile = mrf.plan_tile(C, L, mrf.receptive_radius(KS, DS) + pad, pad)
     n_cog = C // 32 if C % 32 == 0 else C // 16   # c_out groups
     flop = 0
     for k in KS:
@@ -224,15 +230,22 @@ def issued_flop(mrf, B, C, L, head: bool, pass_tiles: int = 0) -> int:
     return flop * -(-L // tile) * B
 
 
-def stage_bound(B, C, L, head: bool):
-    """(ms, "operations" | "bytes"): the least time for one stage, the
-    larger of its bf16 FLOP at the tensor-core peak and its bytes (x read
-    once, output written once, bf16 weights and f32 biases read once) at
-    the memory rate."""
+def stage_bound(B, C, L, head: bool, dtype):
+    """(ms, "operations" | "bytes"): the least time for one stage in
+    ``dtype``, the larger of its FLOP at that type's peak (bf16 on the
+    tensor cores; float32 on the CUDA cores, since the port computes
+    strict float32, no TF32) and its bytes at the memory rate (x read
+    once, output written once, the weights in ``dtype`` and the f32
+    biases read once)."""
+    import torch
+
+    f32 = dtype == torch.float32
     flop = stage_flop(B, C, L, head)
+    wbytes = 4 if f32 else 2
     nbytes = (C * L * B * 4 + (L * B if head else C * L * B) * 4
-              + 126 * C * C * 2 + 18 * C * 4)
-    t_ops, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+              + (126 * C * C + (7 * C if head else 0)) * wbytes + 18 * C * 4)
+    t_ops = flop / (PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -281,7 +294,7 @@ def kernel_sections(text: str):
 def inspect_library(path: str) -> int:
     """Log each kernel's registers, stack and spills and return the count
     of HMMA instructions in the SASS of the tensor-core kernel; raise if it
-    has none, or if the float32 kernel has any."""
+    has none, or if any float32 kernel (every other one) has any."""
     with open(path + ".log") as f:   # nvcc -Xptxas -v, kept by the build
         for line in f:
             if any(w in line for w in ("entry function", "registers",
@@ -298,10 +311,12 @@ def inspect_library(path: str) -> int:
             for name, lines in kernel_sections(sass).items()}
     log(f"  HMMA instructions per kernel: {hmma}")
     tc = sum(n for name, n in hmma.items() if "mrf_stage_tc_kernel" in name)
-    simt = sum(n for name, n in hmma.items() if "mrf_stage_kernel" in name)
-    if tc == 0 or simt != 0:
+    # every other kernel of the library is a float32 one (SIMT, no TF32)
+    simt = {name: n for name, n in hmma.items()
+            if "mrf_stage_tc_kernel" not in name}
+    if tc == 0 or not simt or any(simt.values()):
         raise AssertionError(f"HMMA count: tensor-core kernel {tc}, "
-                             f"float32 kernel {simt}")
+                             f"float32 kernels {simt}")
     return tc
 
 
@@ -3551,9 +3566,18 @@ def quality_phase(counters, root: str, device: str = "cuda",
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "one CUDA card (see the module docstring)")
+    ap.add_argument("--kernels", action="store_true",
+                    help="phases 1 and 2 only: build, check and time the "
+                    "MRF kernels, then stop")
+    kernels_only = ap.parse_args(argv).kernels
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3614,30 +3638,37 @@ def main() -> int:
         plain = plain_stage(mrf, x, packs[C], dtype, post)
         out, ref = kern(), plain()
         torch.cuda.synchronize()
-        tol = F32_TOL if dtype == torch.float32 else BF16_STAGE_TOL
+        f32 = dtype == torch.float32
+        tol = F32_TOL if f32 else BF16_STAGE_TOL
         err = check(f"{label} B={B} C={C} L={L} head={head} {dtype}",
                     out, ref, tol)
-        bound_ms, bound_by = stage_bound(B, C, L, head)
+        bound_ms, bound_by = stage_bound(B, C, L, head, dtype)
         res = {"err": err, "bound_ms": bound_ms, "bound_by": bound_by}
+        note = ""
         if timed:
             res["ms"] = cuda_ms(kern)
             res["plain_ms"] = cuda_ms(plain)
             res["flop"] = stage_flop(B, C, L, head)
             res["tflops"] = res["flop"] / res["ms"] / 1e9
-            issued = issued_flop(mrf, B, C, L, head)
-            res["issued_over_useful"] = issued / res["flop"]
-            res["issued_tflops"] = issued / res["ms"] / 1e9
-            res["halo_over_useful"] = (issued_flop(mrf, B, C, L, head, 1)
-                                       / res["flop"])
+            res["of_bound"] = bound_ms / res["ms"]
+            note = (f"kernel {res['ms']:.3f} ms plain {res['plain_ms']:.3f} "
+                    f"ms ({res['tflops']:.2f} TFLOP/s useful, "
+                    f"{res['of_bound']:.1%} of the bound")
+            if f32:
+                note += ") "
+            else:   # the MMA work the bf16 kernel's tiling issues
+                issued = issued_flop(mrf, B, C, L, head)
+                res["issued_over_useful"] = issued / res["flop"]
+                res["issued_tflops"] = issued / res["ms"] / 1e9
+                res["halo_over_useful"] = (issued_flop(mrf, B, C, L, head, 1)
+                                           / res["flop"])
+                note += (f"; {res['issued_tflops']:.2f} issued = "
+                         f"{res['issued_over_useful']:.3f}x, of which halo "
+                         f"and rounding {res['halo_over_useful']:.3f}x) ")
         log(f"  {label:9s} {'streamed' if streamed else 'fused':8s} B={B} "
             f"C={C:3d} L={L:6d} head={int(head)} "
-            f"{str(dtype).split('.')[-1]:8s} max|err|={err:.3e} "
-            + (f"kernel {res['ms']:.3f} ms plain {res['plain_ms']:.3f} ms "
-               f"({res['tflops']:.2f} TFLOP/s useful, "
-               f"{res['issued_tflops']:.2f} issued = "
-               f"{res['issued_over_useful']:.3f}x, of which halo and "
-               f"rounding {res['halo_over_useful']:.3f}x) " if timed else "")
-            + f"bound {res['bound_ms']:.4f} ms")
+            f"{str(dtype).split('.')[-1]:8s} max|err|={err:.3e} {note}"
+            f"bound {res['bound_ms']:.4f} ms ({bound_by})")
         return res
 
     log("# phase 2: kernel vs plain version (f32 tol "
@@ -3647,15 +3678,37 @@ def main() -> int:
             for L in (40, 50, 300, 1237):
                 for head in ((False,) if C > 128 else (False, True)):
                     case("edge", 2, C, L, head, dtype)
-    for dtype in dtypes:   # the stages of a 768-frame mel, B=1
-        for i, (C, up) in enumerate(((256, 8), (128, 64), (64, 128),
-                                     (32, 256))):
-            case("mel768", 1, C, 768 * up, i == 3, dtype)
-    timing = {"fused": [], "streamed": []}
-    for i, (C, up) in enumerate(((256, 8), (128, 64), (64, 128), (32, 256))):
-        res = case("main", 8, C, 1024 * up, i == 3, torch.bfloat16,
-                   timed=True, seed=i)
-        timing["streamed" if C > 128 else "fused"].append(res)
+    stages = ((256, 8), (128, 64), (64, 128), (32, 256))
+    # the stages of a 768-frame mel, B=1: float32 timed (the latency view)
+    for dtype in dtypes:
+        for i, (C, up) in enumerate(stages):
+            case("mel768", 1, C, 768 * up, i == 3, dtype,
+                 timed=dtype == torch.float32)
+    # the main path's B=8, mel-1024 stages, timed in both types
+    timing = {dt: {"fused": [], "streamed": []} for dt in dtypes}
+    for dtype in dtypes:
+        for i, (C, up) in enumerate(stages):
+            res = case("main", 8, C, 1024 * up, i == 3, dtype, timed=True,
+                       seed=i)
+            timing[dtype]["streamed" if C > 128 else "fused"].append(res)
+    for dtype in dtypes:
+        rows = timing[dtype]["streamed"] + timing[dtype]["fused"]
+        ms = sum(r_["ms"] for r_ in rows)
+        bound = sum(r_["bound_ms"] for r_ in rows)
+        log(f"  main, four stages, {str(dtype).split('.')[-1]}: {ms:.3f} ms, "
+            f"{sum(r_['flop'] for r_ in rows) / ms / 1e9:.2f} TFLOP/s "
+            f"useful, bound {bound:.3f} ms ({bound / ms:.1%}), plain "
+            f"{sum(r_['plain_ms'] for r_ in rows):.3f} ms")
+    stage_keys = ("ms", "plain_ms", "bound_ms", "tflops", "of_bound", "err",
+                  "issued_tflops", "issued_over_useful", "halo_over_useful")
+    stages_b8 = {str(dt).split(".")[-1]: [
+        {k_: r_[k_] for k_ in stage_keys if k_ in r_}
+        for r_ in timing[dt]["streamed"] + timing[dt]["fused"]]
+        for dt in dtypes}
+    if kernels_only:
+        print(json.dumps({"build_s": build_s, "stages_B8": stages_b8}))
+        print(smi)
+        return 0
 
     # -- phase 3: synthesis at full LJSpeech width -------------------------
     cfg = load_configs("LJSpeech")
@@ -3717,11 +3770,25 @@ def main() -> int:
         walls[f"B8_T{T}"] = wall * 1e3
         log(f"  RTF B=8 T={T} (mel bucket 1024): {r:.6f} (median wall "
             f"{wall * 1e3:.2f} ms for {audio:.3f} s of audio)")
+    # B=1 in float32 (denoiser and vocoder stages): the float32 kernels'
+    # users, against the plain float32 vocoder on the same mel
+    synth32 = Synthesizer(cfg, model, vocoder, T=1,
+                          compute_dtype=torch.float32)
+    before = [fn.launches for fn in counters]
+    mel32, _, wav32 = counted_call(synth32, [tokens], x_T=x_T)
+    launches_f32 = {fn.__name__: fn.launches - b
+                    for fn, b in zip(counters, before)}
+    with torch.no_grad():
+        wav32_plain = vocoder(torch.from_numpy(mel32).to(dev)).cpu()
+    err_voc32 = check("B=1 f32 vocoder kernels vs plain f32 vocoder",
+                      torch.from_numpy(wav32), wav32_plain, F32_TOL)
+    log(f"  B=1 T=1 float32: max|err| wav vs plain vocoder {err_voc32:.3e}")
     launches = {fn.__name__: fn.launches for fn in counters}
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{launches}")
-    log(f"# main-path launches: {launches}")
+    log(f"# main-path launches: {launches}, of which float32 "
+        f"{launches_f32}")
 
     # the vocoder's share of the B=8 wall: hifigan_apply_fused alone on a
     # mel of the same bucket, timed like the synthesis calls (after the
@@ -3774,55 +3841,52 @@ def main() -> int:
                             smi=smi)
 
     # -- phase 4: summary lines --------------------------------------------
-    src = "cmtts_tpu_torch/csrc/mrf_tc.cu"
     kernels = []
-    for name, key, replaces in (
-            ("fused_mrf_stage", "fused", "cmtts_tpu/ops/mrf_pallas.py:234"),
-            ("fused_mrf_stage_streamed", "streamed",
-             "cmtts_tpu/ops/mrf_pallas.py:374")):
-        rows = timing[key]
-        ms = sum(r_["ms"] for r_ in rows)
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": (launches[name] + zero_shot["launches"][name]
-                         + train["launches"][name]
-                         + data["launches"][name]
-                         + served["launches"][name]
-                         + trainers["launches"][name]
-                         + parallel["launches"][name]
-                         + image["launches"][name]
-                         + quality["launches"][name]),
-            "launches_by_phase": {"3": launches[name],
-                                  "5": zero_shot["launches"][name],
-                                  "6": train["launches"][name],
-                                  "7": data["launches"][name],
-                                  "8": served["launches"][name],
-                                  "9": trainers["launches"][name],
-                                  "10": parallel["launches"][name],
-                                  "11": image["launches"][name],
-                                  "12": quality["launches"][name]},
-            "launches_note": ("phase 12 counts its in-process launches; "
-                              "the scripts' CLIs (cli.serve with HiFi-GAN "
-                              "among them) launch theirs in subprocesses, "
-                              "not counted"),
-            "design": "mma.sync bf16", "float32_design": "simt f32",
-            "float32_source": "cmtts_tpu_torch/csrc/mrf.cu",
-            "hmma_in_sass": hmma,
-            "max_abs_err": max(r_["err"] for r_ in rows),
-            "ms": ms,
-            "tflops": sum(r_["flop"] for r_ in rows) / ms / 1e9,
-            "plain_ms": sum(r_["plain_ms"] for r_ in rows),
-            "bound_ms": sum(r_["bound_ms"] for r_ in rows),
-            "bound_by": ("operations" if all(
-                r_["bound_by"] == "operations" for r_ in rows) else "bytes"),
-            "library_ms": None})
-    stages = [{k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms", "tflops",
-                                     "issued_tflops", "issued_over_useful",
-                                     "halo_over_useful", "err")}
-              for r_ in timing["streamed"] + timing["fused"]]
+    phases = {"3": launches, "5": zero_shot["launches"],
+              "6": train["launches"], "7": data["launches"],
+              "8": served["launches"], "9": trainers["launches"],
+              "10": parallel["launches"], "11": image["launches"],
+              "12": quality["launches"]}
+    for dtype, src, design, note in (
+            (torch.bfloat16, "cmtts_tpu_torch/csrc/mrf_tc.cu",
+             "mma.sync bf16, one fused launch a stage",
+             "phase 12 counts its in-process launches; the scripts' CLIs "
+             "(cli.serve with HiFi-GAN among them) launch theirs in "
+             "subprocesses, not counted; phase 3 less its float32 call"),
+            (torch.float32, "cmtts_tpu_torch/csrc/mrf.cu",
+             "SIMT f32 implicit GEMM, one launch a conv (+ head)",
+             "the float32 route runs on the main path in phase 3's B=1 "
+             "float32 synthesis call only")):
+        f32 = dtype == torch.float32
+        for name, key, replaces in (
+                ("fused_mrf_stage", "fused",
+                 "cmtts_tpu/ops/mrf_pallas.py:234"),
+                ("fused_mrf_stage_streamed", "streamed",
+                 "cmtts_tpu/ops/mrf_pallas.py:374")):
+            rows = timing[dtype][key]
+            ms = sum(r_["ms"] for r_ in rows)
+            by_phase = ({"3": launches_f32[name]} if f32 else
+                        {ph: n[name] - (launches_f32[name] if ph == "3"
+                                        else 0)
+                         for ph, n in phases.items()})
+            kernels.append({
+                "name": name + ("[float32]" if f32 else ""),
+                "route": "cuda", "source": src, "replaces": replaces,
+                "dtype": str(dtype).split(".")[-1], "design": design,
+                "launches": sum(by_phase.values()),
+                "launches_by_phase": by_phase, "launches_note": note,
+                **({} if f32 else {"hmma_in_sass": hmma}),
+                "max_abs_err": max(r_["err"] for r_ in rows),
+                "ms": ms,
+                "tflops": sum(r_["flop"] for r_ in rows) / ms / 1e9,
+                "plain_ms": sum(r_["plain_ms"] for r_ in rows),
+                "bound_ms": sum(r_["bound_ms"] for r_ in rows),
+                "bound_by": ("operations" if all(
+                    r_["bound_by"] == "operations" for r_ in rows)
+                    else "bytes"),
+                "library_ms": None})
     print(json.dumps({"rtf": results, "build_s": build_s,
-                      "stages_B8": stages}))
+                      "stages_B8": stages_b8}))
     print(json.dumps({"train": train}))
     print(json.dumps({"data": data}))
     print(json.dumps({"serve": served}))

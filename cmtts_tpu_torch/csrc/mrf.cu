@@ -1,257 +1,386 @@
-// Fused multi-receptive-field (MRF) stage of the HiFi-GAN generator, for
-// sm_90a: the float32 path (SIMT) and the C entry point of both dtypes.
-// The bfloat16 path runs on tensor cores in mrf_tc.cu.  Both serve the two
-// Python entry points of cmtts_tpu_torch/ops/mrf.py:
+// Multi-receptive-field (MRF) stage of the HiFi-GAN generator, for sm_90a:
+// the float32 path (SIMT, strict IEEE f32 FMAs: no TF32, no HMMA) and the C
+// entry points of both types.  The bfloat16 path runs on tensor cores in
+// mrf_tc.cu.  Both serve the two Python entry points of
+// cmtts_tpu_torch/ops/mrf.py:
 //   fused_mrf_stage          <- cmtts_tpu/ops/mrf_pallas.py::fused_mrf_stage
 //                               (C <= 128, optional fused generator head)
 //   fused_mrf_stage_streamed <- cmtts_tpu/ops/mrf_pallas.py::fused_mrf_stage_streamed
-//                               (C = 256, weights streamed from L2)
+//                               (C = 256, weights streamed from HBM)
+// In float32 both run mrf_stage_f32 below, whatever the width.
 //
-// What it computes, per batch row and per length tile of the (B, C, L)
-// input x:  out = mean_j ResBlock_j(x), ResBlock_j = 3 pairs of
+// What it computes, per batch row of the (B, C, L) input x:
+//   out = mean_j ResBlock_j(x), ResBlock_j = n pairs of
 //   y += conv_k(lrelu(conv_{k,d}(lrelu(y))))   (lrelu slope 0.1, SAME convs)
-// with every conv output zeroed outside [0, L), so that conv(0) = bias never
-// leaks into the sequence through the next conv's taps.  With the head:
-//   wav = tanh(conv_post_7(lrelu_0.01(out)))   written as (B, L).
+// and with the head wav = tanh(conv_post_7(lrelu_0.01(out))), written as
+// (B, L).
 //
-// What bounds it on an H100: operations.  A stage is 252 C^2 L B FLOP
-// (18 convs, 2 k C^2 each, k in {3, 7, 11}) over 2 C L B activations read
-// and written, i.e. ~60 C FLOP per byte in f32: far above the ~20 FLOP/B
-// at which the card's SIMT f32 rate meets its memory rate.
+// What bounds it on an H100: operations on the CUDA cores.  A stage is
+// 252 C^2 L B FLOP (18 convs of 2 k C^2 a position, k in {3, 7, 11}) and
+// the port computes float32 strictly, so the peak is the SIMT f32 rate,
+// 67 TFLOP/s (H100 SXM data sheet): 72.7 ms for the four stages of a
+// batch-8, 1024-frame mel, against 0.2 ms of bytes a stage.
 //
-// Design of the float32 kernel (kept simple: it serves the tight float32
-// check against the plain version, not the main path):
-//  * one block per (length tile, batch row); the tile's window carries a
-//    halo of H = receptive radius (+3 with the head) on each side, which is
-//    recomputed rather than exchanged between blocks;
-//  * two C x W activation buffers in shared memory: y (the running
-//    residual) and h (the pair's inner activation, stored already passed
-//    through lrelu).  Where 2 C W sizeof(float) does not fit in the 227 KB
-//    a block may use (C = 256), the wrapper hands the kernel a per-block
-//    scratch in global memory instead, which L2 holds; the code is the same
-//    through generic pointers;
-//  * each conv computes only the region later convs still need (the halo
-//    shrinks by the conv's radius), which cuts the halo's overhead;
-//  * weights are read from global memory (L2-resident), in a
-//    [tap][c_in][c_out] layout so that a warp reads one broadcast 16-byte
-//    vector per (tap, c_in);
-//  * SIMT FMAs: a warp owns 8 output channels x 128 positions (4 per lane,
-//    strided by 32 so that shared-memory reads are conflict-free);
-//  * the sum over ResBlocks is kept in f32: in the output tensor itself
-//    (each block owns its output tile) or, with the head, in shared memory.
-//
-// Numerics: float32 throughout, as the JAX kernel with a float32 compute
-// type; the bfloat16 roundings are mrf_tc.cu's.
+// Design: each conv is one launch, an implicit GEMM on the CUDA cores
+// (M = positions, N = output channels, K = taps x input channels) with its
+// epilogue fused; the stage is 18 such launches in one call (plus the head
+// kernel), with the running y, the pair's inner h and the ResBlock sum in
+// device memory (buffers the wrapper allocates).  Why not one launch a
+// stage per length tile: its f32 y and h would take 221-230 KB of shared
+// memory (one 8-warp block an SM), every tile would recompute a
+// receptive-radius halo (1.46x the work at C = 128), and at C = 256 they
+// would not fit at all.  Here:
+//  * nothing is recomputed and no halo exists: a conv writes exactly [0, L)
+//    and its loads outside [0, L) are zero (SAME padding).  The price is
+//    bytes: each conv reads and writes whole (B, C, L) tensors, ~4 ms a
+//    stage at B = 8 (C L B is the same at C = 32, 64 and 128), against
+//    8-32 ms of operations;
+//  * a block computes BM positions x BN output channels of one batch row,
+//    256 threads each holding a register tile of kTM = 8 positions x
+//    kTN = 8 channels (64 accumulators), so each k-step's 8 activation
+//    loads (LDS.32, consecutive lanes on consecutive positions: conflict
+//    free for any tap shift) and 2 weight loads (LDS.128, one or two
+//    addresses a warp: broadcast) feed 64 FFMAs.  BN is the largest power
+//    of two <= kMaxBN dividing C, BM = 8 * 256 / (BN / 8);
+//  * K is walked in chunks of kBK input channels, each chunk carrying all
+//    k taps: the chunk's activation window [kBK][BM + (k - 1) d] serves
+//    every tap at a shift of t d, and its weights [k][kBK][BN] sit beside
+//    it.  Chunks pass through a ring of kStages slots in shared memory,
+//    filled by cp.async (the window by 4-byte copies with zero fill outside
+//    [0, L), the weights by 16-byte .cg copies) while the previous chunk is
+//    being consumed, so L2 and HBM latency stay out of the FMA loop;
+//  * conv1 reads lrelu(y): each thread applies it in place to the window
+//    elements it copied itself, once its copies have landed, before the
+//    barrier (once a chunk, not once a use);
+//  * the epilogue adds the bias and applies, per conv: h = lrelu(.) for
+//    conv1; y = y + . for conv2; and on a ResBlock's last pair the f32 sum
+//    over ResBlocks (the first writes it, the last divides by their
+//    count), as the plain version orders it;
+//  * __launch_bounds__(256, 2): two blocks (16 warps) an SM where shared
+//    memory allows (up to 102 KB a block at BN >= 16).
+// The head (14 C L B FLOP) is its own small kernel over the ResBlock sum:
+// a block stages lrelu_0.01 of 32 channels x (256 + post_k - 1) positions
+// in shared memory, then each thread sums its position's taps.
 
 #include "mrf.cuh"
 
 namespace mrf {
 namespace {
 
-constexpr int kCoT = 8;  // output channels per warp item
-constexpr int kPT = 4;   // positions per lane per warp item
+// the float32 conv's work split (mirrored by ops/mrf.py::F32_*)
+constexpr int kTM = 8;       // positions a thread (register tile rows)
+constexpr int kTN = 8;       // output channels a thread
+constexpr int kBK = 8;       // input channels a K-chunk (all taps)
+constexpr int kStages = 2;   // K-chunks in flight in shared memory
+constexpr int kMaxBN = 128;  // widest block in output channels
+// the head kernel
+constexpr int kHeadT = 256;  // positions a block
+constexpr int kHeadC = 32;   // channels staged at a time
+constexpr int kMaxPostK = 17;
 
-// Eight consecutive weights, one broadcast load per warp.
-__device__ __forceinline__ void load8(const float* p, float* o) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
-// One SAME conv over window positions [lo, hi) of the C x W buffers.
-// ACT_IN: apply lrelu(0.1) to the input on load (conv1 reads y).
-// MODE 0 (conv1): dst = lrelu(mask(acc + bias))  -- h, pre-activated
-// MODE 1 (conv2): dst = dst + mask(acc + bias)   -- y += conv2
-template <bool ACT_IN, int MODE>
-__device__ void conv_pass(const float* src, float* dst,
-                          const float* __restrict__ w,
-                          const float* __restrict__ bias, int C, int W, int k,
-                          int d, int lo, int hi, int g0, int L) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// every group but the newest has landed (for this thread's copies)
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+}
+
+struct ConvArgs {
+  const float* src;   // conv input (B, C, L)
+  const float* w;     // this conv's weights [k][C_in][C_out]
+  const float* bias;  // [C]
+  const float* yin;   // conv2: the residual y (B, C, L)
+  float* dst;         // conv1: h; conv2: y, or the ResBlock sum
+  int C, L, k, d;
+  int wa;             // window row stride, >= BM + (k - 1) d, mult. of 4
+  int to_sum, first, last, nblk;  // conv2 on a ResBlock's last pair
+};
+
+// Window length (positions) of a chunk's activation rows, padded so that
+// the weight slot after the window rows stays 16-byte aligned.
+int window_stride(int bm, int k, int d) {
+  return (bm + (k - 1) * d + 3) & ~3;
+}
+
+// One SAME conv as an implicit GEMM.  MODE 0 (conv1): src = y, read
+// through lrelu(0.1); dst = lrelu(conv + bias).  MODE 1 (conv2): src = h;
+// y = yin + conv + bias goes to dst, or into the ResBlock sum.
+template <int BN, int MODE>
+__global__ void __launch_bounds__(kThreads, 2)
+mrf_conv_f32_kernel(const ConvArgs a) {
+  constexpr int NT = BN / kTN;          // threads along output channels
+  constexpr int MT = kThreads / NT;     // threads along positions
+  constexpr int BM = MT * kTM;          // positions a block
+  extern __shared__ __align__(16) float smem[];
+  const int C = a.C, L = a.L, k = a.k, d = a.d, wa = a.wa;
   const int half = (k - 1) / 2;
-  const int n_cog = C / kCoT;
-  constexpr int chunk = 32 * kPT;
-  const int n_items = n_cog * ((hi - lo + chunk - 1) / chunk);
-  for (int item = warp; item < n_items; item += kWarps) {
-    const int co0 = (item % n_cog) * kCoT;
-    const int pbase = lo + (item / n_cog) * chunk + lane;
-    int pidx[kPT];
+  const int span = BM + (k - 1) * d;    // window positions actually used
+  const int a_slot = kBK * wa;          // floats of one window slot
+  const int w_slot = k * kBK * BN;      // floats of one weight slot
+  float* As = smem;                     // [kStages][kBK][wa]
+  float* Ws = smem + kStages * a_slot;  // [kStages][k][kBK][BN]
+  const int tid = threadIdx.x;
+  const int tx = tid % MT, ty = tid / MT;
+  const int p0 = blockIdx.x * BM;
+  const int co0 = blockIdx.y * BN;
+  const int b = blockIdx.z;
+  const int g_lo = p0 - half * d;       // position of window index 0
+  const float* src = a.src + (size_t)b * C * L;
+
+  // cp.async of K-chunk c (input channels c kBK ..) into ring slot s
+  auto load = [&](int c, int s) {
+    const int ci0 = c * kBK;
+    float* A = As + s * a_slot;
 #pragma unroll
-    for (int j = 0; j < kPT; ++j) pidx[j] = min(pbase + 32 * j, hi - 1);
-    float acc[kCoT][kPT];
+    for (int r = 0; r < kBK; ++r) {
+      const float* row = src + (size_t)(ci0 + r) * L;
+      for (int u = tid; u < span; u += kThreads) {
+        const int g = g_lo + u;
+        const bool ok = g >= 0 && g < L;
+        cp_async4(A + r * wa + u, row + (ok ? g : 0), ok);
+      }
+    }
+    float* Wt = Ws + s * w_slot;
+    constexpr int V = BN / 4;           // 16-byte vectors a weight row
+    for (int i = tid; i < k * kBK * V; i += kThreads) {
+      const int row = i / V, v = i - row * V;
+      const int t = row / kBK, r = row - t * kBK;
+      cp_async16(Wt + row * BN + 4 * v,
+                 a.w + ((size_t)t * C + ci0 + r) * C + co0 + 4 * v);
+    }
+  };
+  // conv1: lrelu on the window elements this thread copied (the same
+  // loop as load's), once its copies of chunk c have landed
+  auto activate = [&](int s) {
+    float* A = As + s * a_slot;
 #pragma unroll
-    for (int i = 0; i < kCoT; ++i)
+    for (int r = 0; r < kBK; ++r) {
+      for (int u = tid; u < span; u += kThreads) {
+        A[r * wa + u] = lrelu(A[r * wa + u], kSlope);
+      }
+    }
+  };
+
+  float acc[kTM][kTN];
 #pragma unroll
-      for (int j = 0; j < kPT; ++j) acc[i][j] = 0.f;
+  for (int j = 0; j < kTM; ++j)
+#pragma unroll
+    for (int i = 0; i < kTN; ++i) acc[j][i] = 0.f;
+
+  const int nchunks = C / kBK;
+  load(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < nchunks; ++c) {
+    const int s = c % kStages;
+    if (c + 1 < nchunks) load(c + 1, (c + 1) % kStages);
+    cp_async_commit();                  // empty on the last chunk
+    cp_async_wait_all_but_newest();     // chunk c has landed
+    if (MODE == 0) activate(s);
+    __syncthreads();
+    const float* A = As + s * a_slot + tx;
+    const float* Wt = Ws + s * w_slot + ty * kTN;
     for (int t = 0; t < k; ++t) {
-      const float* s = src + (t - half) * d;
-      const float* wt = w + (size_t)t * C * C + co0;
-#pragma unroll 4
-      for (int ci = 0; ci < C; ++ci) {
-        float xv[kPT];
 #pragma unroll
-        for (int j = 0; j < kPT; ++j) {
-          const float v = s[(size_t)ci * W + pidx[j]];
-          xv[j] = ACT_IN ? lrelu(v, kSlope) : v;
+      for (int r = 0; r < kBK; ++r) {
+        const float* ap = A + r * wa + t * d;
+        float av[kTM];
+#pragma unroll
+        for (int j = 0; j < kTM; ++j) av[j] = ap[j * MT];
+        const float4* wp =
+            reinterpret_cast<const float4*>(Wt + (t * kBK + r) * BN);
+        const float4 w0 = wp[0], w1 = wp[1];
+        const float wv[kTN] = {w0.x, w0.y, w0.z, w0.w,
+                               w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int j = 0; j < kTM; ++j)
+#pragma unroll
+          for (int i = 0; i < kTN; ++i)
+            acc[j][i] = fmaf(av[j], wv[i], acc[j][i]);
+      }
+    }
+    __syncthreads();                    // slot s is free for chunk c + 2
+  }
+
+  // epilogue: positions p0 + tx + MT j, channels co0 + ty kTN + i
+  float bias[kTN];
+#pragma unroll
+  for (int i = 0; i < kTN; ++i) bias[i] = a.bias[co0 + ty * kTN + i];
+#pragma unroll
+  for (int j = 0; j < kTM; ++j) {
+    const int p = p0 + tx + MT * j;
+    if (p >= L) continue;
+#pragma unroll
+    for (int i = 0; i < kTN; ++i) {
+      const size_t idx = ((size_t)b * C + co0 + ty * kTN + i) * L + p;
+      const float v = acc[j][i] + bias[i];
+      if (MODE == 0) {
+        a.dst[idx] = lrelu(v, kSlope);
+      } else {
+        const float y = a.yin[idx] + v;
+        if (!a.to_sum) {
+          a.dst[idx] = y;
+        } else {
+          const float sum = a.first ? y : a.dst[idx] + y;
+          a.dst[idx] = a.last ? sum / a.nblk : sum;
         }
-        float wv[kCoT];
-        load8(wt + (size_t)ci * C, wv);
-#pragma unroll
-        for (int i = 0; i < kCoT; ++i)
-#pragma unroll
-          for (int j = 0; j < kPT; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPT; ++j) {
-      const int p = pbase + 32 * j;
-      if (p >= hi) continue;
-      const int g = g0 + p;
-      const bool valid = g >= 0 && g < L;
-#pragma unroll
-      for (int i = 0; i < kCoT; ++i) {
-        const int co = co0 + i;
-        const float v = valid ? acc[i][j] + bias[co] : 0.f;
-        float* o = dst + (size_t)co * W + p;
-        *o = MODE == 0 ? lrelu(v, kSlope) : *o + v;
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-mrf_stage_kernel(const MrfArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int C = a.C, L = a.L, W = a.W, H = a.halo, P = a.pad;
-  const int tile = a.tile;
+// wav[b, p] = tanh(b_post + sum_{t, c} w_post[t][c] lrelu_0.01(s[b, c, p +
+// t - half])), zero outside [0, L) as the SAME conv pads.
+__global__ void __launch_bounds__(kHeadT)
+mrf_head_f32_kernel(const float* s, const float* w_post, const float* b_post,
+                    float* wav, int C, int L, int post_k) {
+  __shared__ float hs[kHeadC][kHeadT + kMaxPostK - 1];
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * tile;  // global position of the tile
-  const int g0 = t0 - H;             // global position of window index 0
-  const bool head = a.w_post != nullptr;
-  const int acc_w = tile + 2 * P;
-
-  float* ybuf;
-  float* acc_s;  // head only: sum over ResBlocks, C x acc_w
-  if (a.scratch != nullptr) {
-    const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    ybuf = reinterpret_cast<float*>(a.scratch) + blk * 2 * (size_t)C * W;
-    acc_s = reinterpret_cast<float*>(smem);
-  } else {
-    ybuf = reinterpret_cast<float*>(smem);
-    acc_s = ybuf + 2 * (size_t)C * W;
-  }
-  float* hbuf = ybuf + (size_t)C * W;
-  const float* xb = a.x + (size_t)b * C * L;
-  float* ob = a.out + (size_t)b * C * L;
-
-  const float* wconv = reinterpret_cast<const float*>(a.w);
-  size_t woff = 0;
-  for (int j = 0; j < a.nblk; ++j) {
-    const int k = a.ks[j];
-    const int half = (k - 1) / 2;
-    // y = x over the whole window, zero outside [0, L)
-    for (int idx = threadIdx.x; idx < C * W; idx += kThreads) {
-      const int c = idx / W, p = idx - c * W;
-      const int g = g0 + p;
-      ybuf[idx] = g >= 0 && g < L ? xb[(size_t)c * L + g] : 0.f;
+  const int p0 = blockIdx.x * kHeadT;
+  const int p = p0 + threadIdx.x;
+  const int half = (post_k - 1) / 2;
+  const int span = kHeadT + post_k - 1;
+  const float* sb = s + (size_t)b * C * L;
+  float acc = 0.f;
+  for (int c0 = 0; c0 < C; c0 += kHeadC) {
+    const int nc = min(kHeadC, C - c0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nc * span; i += kHeadT) {
+      const int r = i / span, u = i - r * span;
+      const int g = p0 - half + u;
+      hs[r][u] = g >= 0 && g < L
+                     ? lrelu(sb[(size_t)(c0 + r) * L + g], kPostSlope)
+                     : 0.f;
     }
     __syncthreads();
-    // radius the later convs of this ResBlock still need
-    int rem = P;
-    for (int p = 0; p < a.npair; ++p) rem += half * a.ds[p] + half;
-    for (int p = 0; p < a.npair; ++p) {
-      const int d = a.ds[p];
-      const size_t kcc = (size_t)k * C * C;
-      const float* b1 = a.bias + ((size_t)(j * a.npair + p) * 2 + 0) * C;
-      const float* b2 = b1 + C;
-      rem -= half * d;
-      conv_pass<true, 0>(ybuf, hbuf, wconv + woff, b1, C, W, k, d,
-                         H - rem, H + tile + rem, g0, L);
-      __syncthreads();
-      rem -= half;
-      conv_pass<false, 1>(hbuf, ybuf, wconv + woff + kcc, b2, C, W, k, 1,
-                          H - rem, H + tile + rem, g0, L);
-      __syncthreads();
-      woff += 2 * kcc;
-    }
-    // sum over ResBlocks
-    const bool first = j == 0, last = j == a.nblk - 1;
-    if (head) {
-      for (int idx = threadIdx.x; idx < C * acc_w; idx += kThreads) {
-        const int c = idx / acc_w, u = idx - c * acc_w;
-        const float v = ybuf[(size_t)c * W + H - P + u];
-        const float s = first ? v : acc_s[idx] + v;
-        acc_s[idx] = last ? s / a.nblk : s;
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < C * tile; idx += kThreads) {
-        const int c = idx / tile, u = idx - c * tile;
-        const int g = t0 + u;
-        if (g >= L) continue;
-        const float v = ybuf[(size_t)c * W + H + u];
-        float* o = ob + (size_t)c * L + g;
-        const float s = first ? v : *o + v;
-        *o = last ? s / a.nblk : s;
+    for (int t = 0; t < post_k; ++t) {
+      for (int r = 0; r < nc; ++r) {
+        acc = fmaf(w_post[t * C + c0 + r], hs[r][threadIdx.x + t], acc);
       }
     }
-    __syncthreads();
   }
-  if (!head) return;
-  // generator head: lrelu(0.01) -> conv_post (k = post_k, C -> 1) -> tanh
-  const float* wp = reinterpret_cast<const float*>(a.w_post);
-  for (int u = threadIdx.x; u < tile; u += kThreads) {
-    const int g = t0 + u;
-    if (g >= L) continue;
-    float s = 0.f;
-    for (int tap = 0; tap < a.post_k; ++tap) {
-      const float* col = acc_s + u + tap;  // window position H + u + tap - P
-      for (int ci = 0; ci < C; ++ci) {
-        s = fmaf(wp[tap * C + ci], lrelu(col[(size_t)ci * acc_w], kPostSlope),
-                 s);
-      }
-    }
-    a.out[(size_t)b * L + g] = tanhf(s + a.b_post[0]);
-  }
+  if (p < L) wav[(size_t)b * L + p] = tanhf(acc + b_post[0]);
 }
 
-int launch(const MrfArgs& a, int smem_bytes, cudaStream_t stream) {
+int conv_bn(int C) {
+  int bn = kMaxBN;
+  while (C % bn != 0) bn /= 2;
+  return bn;
+}
+
+template <int BN, int MODE>
+int launch_conv(const ConvArgs& a0, int B, cudaStream_t stream) {
+  constexpr int BM = kThreads / (BN / kTN) * kTM;
+  ConvArgs a = a0;
+  a.wa = window_stride(BM, a.k, a.d);
+  const int smem =
+      (int)(sizeof(float) * kStages * (kBK * a.wa + a.k * kBK * BN));
   cudaError_t e = cudaFuncSetAttribute(
-      mrf_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      mrf_conv_f32_kernel<BN, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.L + a.tile - 1) / a.tile, a.B);
-  mrf_stage_kernel<<<grid, kThreads, smem_bytes, stream>>>(a);
+  const dim3 grid((a.L + BM - 1) / BM, a.C / BN, B);
+  mrf_conv_f32_kernel<BN, MODE><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_conv_bn(const ConvArgs& a, int B, cudaStream_t stream) {
+  switch (conv_bn(a.C)) {
+    case 128: return launch_conv<128, MODE>(a, B, stream);
+    case 64: return launch_conv<64, MODE>(a, B, stream);
+    case 32: return launch_conv<32, MODE>(a, B, stream);
+    case 16: return launch_conv<16, MODE>(a, B, stream);
+    case 8: return launch_conv<8, MODE>(a, B, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace mrf
 
-// dtype: 0 = float32 (SIMT kernel above), 1 = bfloat16 (tensor-core kernel
-// of mrf_tc.cu, w in B-fragment order).  Returns a cudaError_t; 0 means
-// launched.
-extern "C" int mrf_stage(int dtype, const float* x, float* out, const void* w,
+// The float32 stage: 2 nblk npair conv launches, then the head when
+// w_post is not null.  out is (B, C, L), or (B, L) with the head; h is a
+// (B, C, L) buffer, y one too when npair > 1, and s one with the head (the
+// ResBlock sum the head reads).  Returns a cudaError_t; 0 means launched.
+extern "C" int mrf_stage_f32(const float* x, float* out, const float* w,
+                             const float* bias, const float* w_post,
+                             const float* b_post, float* y, float* h,
+                             float* s, int B, int C, int L, int nblk,
+                             int npair, const int* ks, const int* ds,
+                             int post_k, void* stream) {
+  using namespace mrf;
+  const bool head = w_post != nullptr;
+  if (C % kTN != 0 || C % kBK != 0 || nblk < 1 || npair < 1 ||
+      (npair > 1 && y == nullptr) || (head && (s == nullptr ||
+      post_k < 1 || post_k > kMaxPostK))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  float* sum = head ? s : out;
+  size_t woff = 0;
+  const float* bp = bias;
+  for (int j = 0; j < nblk; ++j) {
+    const int k = ks[j];
+    const size_t kcc = (size_t)k * C * C;
+    for (int p = 0; p < npair; ++p) {
+      ConvArgs a = {};
+      a.C = C; a.L = L; a.k = k; a.nblk = nblk;
+      a.src = p == 0 ? x : y;
+      a.w = w + woff; a.bias = bp; a.dst = h; a.d = ds[p];
+      int err = launch_conv_bn<0>(a, B, st);
+      if (err != 0) return err;
+      const bool last_pair = p == npair - 1;
+      a.src = h; a.yin = p == 0 ? x : y;
+      a.w = w + woff + kcc; a.bias = bp + C; a.d = 1;
+      a.dst = last_pair ? sum : y;
+      a.to_sum = last_pair; a.first = j == 0; a.last = j == nblk - 1;
+      err = launch_conv_bn<1>(a, B, st);
+      if (err != 0) return err;
+      woff += 2 * kcc;
+      bp += 2 * C;
+    }
+  }
+  if (!head) return 0;
+  const dim3 grid((L + kHeadT - 1) / kHeadT, B);
+  mrf_head_f32_kernel<<<grid, kHeadT, 0, st>>>(s, w_post, b_post, out, C, L,
+                                               post_k);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 stage on tensor cores (mrf_tc.cu, w in B-fragment order).
+// Returns a cudaError_t; 0 means launched.
+extern "C" int mrf_stage(const float* x, float* out, const void* w,
                          const float* bias, const void* w_post,
-                         const float* b_post, void* scratch, int B, int C,
-                         int L, int tile, int halo, int pad, int nblk,
-                         int npair, const int* ks, const int* ds, int post_k,
+                         const float* b_post, int B, int C, int L, int tile,
+                         int halo, int pad, int nblk, int npair,
+                         const int* ks, const int* ds, int post_k,
                          int smem_bytes, void* stream) {
   using namespace mrf;
-  if (nblk > kMaxBlocks || npair > kMaxPairs || C % kCoT != 0) {
+  if (nblk > kMaxBlocks || npair > kMaxPairs) {
     return (int)cudaErrorInvalidValue;
   }
   MrfArgs a;
   a.x = x; a.out = out; a.w = w; a.bias = bias;
-  a.w_post = w_post; a.b_post = b_post; a.scratch = scratch;
+  a.w_post = w_post; a.b_post = b_post; a.scratch = nullptr;
   a.B = B; a.C = C; a.L = L;
   a.tile = tile; a.halo = halo; a.W = tile + 2 * halo; a.pad = pad;
   a.nblk = nblk; a.npair = npair; a.post_k = post_k;
   for (int i = 0; i < kMaxBlocks; ++i) a.ks[i] = i < nblk ? ks[i] : 1;
   for (int i = 0; i < kMaxPairs; ++i) a.ds[i] = i < npair ? ds[i] : 1;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch(a, smem_bytes, s);
-  if (dtype == 1) return launch_tc(a, smem_bytes, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_tc(a, smem_bytes, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
-"""Fused multi-receptive-field (MRF) vocoder stage: the CUDA kernel's
-wrappers, their plain PyTorch versions and the weight packers.
+"""Multi-receptive-field (MRF) vocoder stage: the CUDA kernels' wrappers,
+their plain PyTorch versions and the weight packers.
 
 Counterparts of ``cmtts_tpu/ops/mrf_pallas.py``:
 
@@ -8,15 +8,21 @@ Counterparts of ``cmtts_tpu/ops/mrf_pallas.py``:
 - :func:`fused_mrf_stage_streamed` replaces ``fused_mrf_stage_streamed``
   (the weight-streaming Pallas kernel for the C = 256 stage).
 
-Both launch ``mrf_stage`` of the hand-written CUDA C++ for sm_90a in
-``csrc/``: in float32 the SIMT kernel of ``csrc/mrf.cu``, in bfloat16 (the
-main path) the tensor-core kernel of ``csrc/mrf_tc.cu``, which reads its
-weights in ``mma.sync`` B-fragment order (:func:`pack_mrf_fragments`; a
-stage's pack carries both layouts and the wrapper picks one).  The
-sources' headers say what bounds the kernels on an H100 and how their
-designs deal with that.  The library is built with ``nvcc`` into ``build/``
-at the repository root on first use, under a name that hashes every file of
-``csrc/`` and the flags, and loaded with ``ctypes``.
+Both launch the hand-written CUDA C++ for sm_90a in ``csrc/``.  In
+bfloat16 (the main path) ``mrf_stage``: one launch a stage of the
+tensor-core kernel of ``csrc/mrf_tc.cu``, which reads its weights in
+``mma.sync`` B-fragment order (:func:`pack_mrf_fragments`; a stage's pack
+carries both layouts and the wrapper picks one).  In float32
+``mrf_stage_f32`` of ``csrc/mrf.cu``: each of the stage's convs is a
+launch of a SIMT implicit GEMM (strict float32 FMAs, register tiles of
+``F32_TM`` x ``F32_TN``, K-chunks of ``F32_CHUNK`` input channels staged by
+``cp.async`` in a ring of ``F32_STAGES``), with its epilogue fused and the
+running y, the pair's h and the ResBlock sum in device buffers allocated
+here, then the head's kernel.  The sources' headers say what bounds the
+kernels on an H100 and how their designs deal with that.  The library is
+built with ``nvcc`` into ``build/`` at the repository root on first use,
+under a name that hashes every file of ``csrc/`` and the flags, and loaded
+with ``ctypes``.
 
 Layout is channels-first (B, C, L), the kernel's and ``Conv1d``'s layout;
 x and the output are float32, and ``compute_dtype`` (float32 or bfloat16)
@@ -56,6 +62,12 @@ ROW_PAD = 8                  # bf16 pad of a position's activation row
 # the bf16 kernel's work split (kWarps of csrc/mrf.cuh, kMT of
 # csrc/mrf_tc.cu): warps of a block, m16 tiles of a warp pass
 WARPS, PASS_TILES = 8, 8
+# the float32 conv's work split (csrc/mrf.cu): a thread's register tile
+# (positions x output channels), input channels a K-chunk, K-chunks in the
+# shared-memory ring, the widest block in output channels; the head's
+# positions a block and its widest kernel
+F32_TM, F32_TN, F32_CHUNK, F32_STAGES, F32_MAX_BN = 8, 8, 8, 2, 128
+F32_HEAD_T, F32_HEAD_C, F32_MAX_POST_K = 256, 32, 17
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -140,9 +152,12 @@ def load_library(path: str):
     lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.mrf_stage.argtypes = [i, p, p, p, p, p, p, p,
+    lib.mrf_stage.argtypes = [p, p, p, p, p, p,
                               i, i, i, i, i, i, i, i, ip, ip, i, i, p]
     lib.mrf_stage.restype = ctypes.c_int
+    lib.mrf_stage_f32.argtypes = [p, p, p, p, p, p, p, p, p,
+                                  i, i, i, i, i, ip, ip, i, p]
+    lib.mrf_stage_f32.restype = ctypes.c_int
     return lib
 
 
@@ -283,46 +298,70 @@ def mrf_stage_plain(x, w, b, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
 
 # -- kernel wrappers --------------------------------------------------------
 
-def plan_tile(C: int, L: int, itemsize: int, halo: int, pad: int):
-    """(tile, in_shared): the largest length tile (a multiple of 32, at most
-    512) whose y/h buffers (and, with the head, f32 ResBlock sum) fit in
-    shared memory; when none does, a 256 tile whose buffers live in a
-    global-memory scratch (float32 only).  ``pad`` > 0 means the head is
-    fused."""
+def plan_tile(C: int, L: int, halo: int, pad: int) -> int:
+    """The bf16 kernel's length tile: the largest multiple of 32, at most
+    512, whose y/h buffers (and, with the head, f32 ResBlock sum) fit in
+    shared memory.  ``pad`` > 0 means the head is fused."""
     cap = min(MAX_TILE, -(-L // 32) * 32)
-    for tile in range(cap, 0, -32):
-        if _smem_bytes(C, tile, itemsize, halo, pad, True) <= SMEM_LIMIT:
-            return tile, True
-    return min(256, cap), False
+    for tile in range(cap, 32, -32):
+        if _smem_bytes(C, tile, halo, pad) <= SMEM_LIMIT:
+            return tile
+    return 32
 
 
-def _smem_bytes(C, tile, itemsize, halo, pad, in_shared):
-    """Shared memory of a block: y and h, float32 as [C][W], bfloat16 as
-    [W][C + ROW_PAD]; with the head, the f32 ResBlock sum [C][tile + 2 pad].
-    """
-    row = C + ROW_PAD if itemsize == 2 else C
-    ab = 2 * row * (tile + 2 * halo) * itemsize if in_shared else 0
+def _smem_bytes(C, tile, halo, pad):
+    """Shared memory of a bf16 block: y and h as [W][C + ROW_PAD]; with the
+    head, the f32 ResBlock sum [C][tile + 2 pad]."""
+    ab = 2 * (C + ROW_PAD) * (tile + 2 * halo) * 2
     head = C * (tile + 2 * pad) * 4 if pad else 0
     return ab + head
+
+
+def conv_block(C: int):
+    """(BM, BN): the positions and output channels of one block of the
+    float32 conv kernel: BN the largest power of two <= ``F32_MAX_BN``
+    dividing C, each thread ``F32_TM`` x ``F32_TN`` of the tile."""
+    bn = F32_MAX_BN
+    while C % bn:
+        bn //= 2
+    return WARPS * 32 // (bn // F32_TN) * F32_TM, bn
+
+
+def window_stride(bm: int, k: int, d: int) -> int:
+    """Row stride of a K-chunk's activation window: BM + (k - 1) d
+    positions, rounded up to 4 floats."""
+    return -(-(bm + (k - 1) * d) // 4) * 4
+
+
+def conv_smem_bytes(C: int, k: int, d: int) -> int:
+    """Shared memory of one float32 conv block: ``F32_STAGES`` ring slots,
+    each a window [F32_CHUNK][stride] and weights [k][F32_CHUNK][BN]."""
+    bm, bn = conv_block(C)
+    return 4 * F32_STAGES * F32_CHUNK * (window_stride(bm, k, d) + k * bn)
 
 
 def kernel_takes(C: int, compute_dtype, kernel_sizes=(3, 7, 11),
                  dilations=(1, 3, 5), post_k: int = 0) -> bool:
     """Whether the kernels take a stage of C channels in ``compute_dtype``
-    (with a fused head of ``post_k`` taps when ``post_k`` > 0): C a
-    multiple of 16 in bfloat16 (one k16 step of ``mma.sync``) or of 8 in
-    float32, at most 4 ResBlocks and 4 dilation pairs, and in bfloat16 the
-    smallest length tile's buffers in shared memory.  The vocoder routes a
-    stage by it when it packs the weights, and the launch refuses a stage
-    it rejects."""
+    (with a fused head of ``post_k`` taps when ``post_k`` > 0): at most 4
+    ResBlocks and 4 dilation pairs; in bfloat16 C a multiple of 16 (one
+    k16 step of ``mma.sync``) and the smallest length tile's buffers in
+    shared memory; in float32 C a multiple of 8 (a thread's channels),
+    every conv's block in shared memory and at most ``F32_MAX_POST_K``
+    head taps.  The vocoder routes a stage by it when it packs the
+    weights, and the launch refuses a stage it rejects."""
     if compute_dtype not in _DTYPE_CODE:
         return False
     bf16 = compute_dtype == torch.bfloat16
     if C % (16 if bf16 else 8) or len(kernel_sizes) > 4 or len(dilations) > 4:
         return False
     pad = (post_k - 1) // 2 if post_k else 0
-    halo = receptive_radius(kernel_sizes, dilations) + pad
-    return not bf16 or _smem_bytes(C, 32, 2, halo, pad, True) <= SMEM_LIMIT
+    if bf16:
+        halo = receptive_radius(kernel_sizes, dilations) + pad
+        return _smem_bytes(C, 32, halo, pad) <= SMEM_LIMIT
+    return post_k <= F32_MAX_POST_K and all(
+        conv_smem_bytes(C, k, d) <= SMEM_LIMIT
+        for k in kernel_sizes for d in (*dilations, 1))
 
 
 def _launch(x, packed, kernel_sizes, dilations, compute_dtype, post):
@@ -359,37 +398,45 @@ def _launch(x, packed, kernel_sizes, dilations, compute_dtype, post):
                 or b_post.numel() != 1):
             raise ValueError("packed head does not match the stage")
         pad = (w_post.shape[0] - 1) // 2
-    halo = receptive_radius(kernel_sizes, dilations) + pad
-    itemsize = torch.tensor([], dtype=compute_dtype).element_size()
-    tile, in_shared = plan_tile(C, L, itemsize, halo, pad)
-    n_tiles = -(-L // tile)
-    scratch = None
-    if not in_shared:   # float32 only: kernel_takes holds bf16 in shared
-        scratch = torch.empty(B * n_tiles * 2 * C * (tile + 2 * halo),
-                              dtype=compute_dtype, device=x.device)
     out = torch.empty((B, L) if post is not None else (B, C, L),
                       dtype=torch.float32, device=x.device)
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
     ds = (ctypes.c_int * len(dilations))(*dilations)
-    err = _library().mrf_stage(
-        _DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(),
-        kw.data_ptr(), b.data_ptr(),
-        post[0].data_ptr() if post is not None else None,
-        post[1].data_ptr() if post is not None else None,
-        scratch.data_ptr() if scratch is not None else None,
-        B, C, L, tile, halo, pad, len(kernel_sizes), len(dilations), ks, ds,
-        post[0].shape[0] if post is not None else 0,
-        _smem_bytes(C, tile, itemsize, halo, pad, in_shared),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    post_ptrs = ((post[0].data_ptr(), post[1].data_ptr()) if post is not None
+                 else (None, None))
+    post_k = post[0].shape[0] if post is not None else 0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bf16:
+        halo = receptive_radius(kernel_sizes, dilations) + pad
+        tile = plan_tile(C, L, halo, pad)
+        err = _library().mrf_stage(
+            x.data_ptr(), out.data_ptr(), kw.data_ptr(), b.data_ptr(),
+            *post_ptrs, B, C, L, tile, halo, pad, len(kernel_sizes),
+            len(dilations), ks, ds, post_k, _smem_bytes(C, tile, halo, pad),
+            stream)
+    else:
+        # the pair's h, the running y (past the first pair) and, with the
+        # head, the ResBlock sum it reads: device buffers of x's shape
+        h = torch.empty_like(x)
+        y = torch.empty_like(x) if len(dilations) > 1 else None
+        s = torch.empty_like(x) if post is not None else None
+        err = _library().mrf_stage_f32(
+            x.data_ptr(), out.data_ptr(), kw.data_ptr(), b.data_ptr(),
+            *post_ptrs, y.data_ptr() if y is not None else None,
+            h.data_ptr(), s.data_ptr() if s is not None else None,
+            B, C, L, len(kernel_sizes), len(dilations), ks, ds, post_k,
+            stream)
     if err != 0:
-        raise RuntimeError(f"mrf_stage launch failed: cudaError_t {err}")
+        raise RuntimeError(f"MRF stage launch failed: cudaError_t {err}")
     return out
 
 
 def fused_mrf_stage(x, packed, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
                     compute_dtype=torch.float32, post=None):
-    """One MRF stage with its weights read from L2 by the CUDA kernel
-    (counterpart of ``mrf_pallas.fused_mrf_stage``).
+    """One MRF stage through the CUDA kernels: one launch of the bf16
+    kernel, or the float32 route's conv launches (counterpart of
+    ``mrf_pallas.fused_mrf_stage``).  ``launches`` counts calls that
+    launched.
 
     x: (B, C, L) float32.  packed: ``(w, b, w_frag)`` from
     :func:`pack_mrf_params` in ``compute_dtype``.  post: optional ``(w, b)``
@@ -415,11 +462,10 @@ def fused_mrf_stage_streamed(x, packed, kernel_sizes=(3, 7, 11),
                              compute_dtype=torch.bfloat16):
     """The wide (C = 256) MRF stage, no head (counterpart of
     ``mrf_pallas.fused_mrf_stage_streamed``).  On the TPU its weights did
-    not fit in VMEM and were streamed from HBM; on Hopper no stage's weights
-    fit in shared memory, and the kernel reads them from L2 for every
-    stage.  Where its activation buffers do not fit in shared memory (C =
-    256 in float32), they live in a global-memory scratch.  ``packed`` as
-    for :func:`fused_mrf_stage`."""
+    not fit in VMEM and were streamed from HBM; on Hopper the bf16 kernel
+    reads them from L2 for every stage, and the float32 convs stage them
+    through shared memory a K-chunk at a time.  ``packed`` as for
+    :func:`fused_mrf_stage`."""
     if x.device.type == "cpu":
         return mrf_stage_plain(x, packed[0], packed[1], kernel_sizes,
                                dilations, compute_dtype)

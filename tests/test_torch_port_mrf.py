@@ -126,9 +126,9 @@ def test_plan_tile_fits_shared_memory():
     for C in (32, 64, 128, 256):
         for pad in (0, 3):
             halo = mrf.receptive_radius(KS, DS) + pad
-            tile, in_shared = mrf.plan_tile(C, 100000, 2, halo, pad)
-            assert in_shared and tile >= 32 and tile % 32 == 0
-            nbytes = mrf._smem_bytes(C, tile, 2, halo, pad, True)
+            tile = mrf.plan_tile(C, 100000, halo, pad)
+            assert tile >= 32 and tile % 32 == 0
+            nbytes = mrf._smem_bytes(C, tile, halo, pad)
             assert nbytes <= mrf.SMEM_LIMIT
             assert nbytes == (2 * (tile + 2 * halo) * (C + 8) * 2
                               + (C * (tile + 2 * pad) * 4 if pad else 0))
@@ -138,10 +138,18 @@ def test_plan_tile_fits_shared_memory():
     halo = mrf.receptive_radius(KS, DS)
     for C, pad, want in ((256, 0, 96), (128, 0, 288), (64, 0, 512),
                          (32, 3, 512)):
-        assert mrf.plan_tile(C, 100000, 2, halo + pad, pad) == (want, True)
-    # f32 at C=256 does not fit: global-memory scratch
-    assert mrf.plan_tile(256, 100000, 4, 60, 0) == (256, False)
-    assert mrf.plan_tile(32, 40, 2, 63, 3)[0] == 64
+        assert mrf.plan_tile(C, 100000, halo + pad, pad) == want
+    # f32 plans no length tile: every width runs one launch a conv, whose
+    # block (BM positions x BN channels, two ring slots of a K-chunk) fits
+    # twice in an SM's shared memory from BN = 32 on
+    assert [mrf.conv_block(C) for C in (256, 128, 64, 32, 16, 8)] == [
+        (128, 128), (128, 128), (256, 64), (512, 32), (1024, 16), (2048, 8)]
+    for C in (256, 128, 64, 32):
+        worst = mrf.conv_smem_bytes(C, 11, 5)
+        assert worst == 4 * 2 * 8 * (mrf.conv_block(C)[0] + 52 + 11
+                                     * mrf.conv_block(C)[1])
+        assert 2 * (worst + 1024) <= 233472      # the SM's shared memory
+    assert mrf.plan_tile(32, 40, 63, 3) == 64
 
 
 @pytest.fixture(scope="module")
