@@ -10,18 +10,20 @@ at full VCTK width with both speaker embedders and every sampler.
 Phases (none catches its own failure; any mismatch raises and the script
 exits non-zero):
   1. device, power limit, torch/CUDA versions, kernel build time, each
-     kernel's registers and stack (``cuobjdump -res-usage``) and the count
-     of tensor-core (HMMA) instructions in the SASS: not 0 in the bf16
-     kernel, 0 in every float32 one;
+     kernel's registers and stack (``cuobjdump -res-usage``), the ptxas
+     log of the bf16 conv kernels (no spill, no serialised wgmma) and the
+     count of warpgroup tensor-core (HGMMA) instructions in the SASS: not
+     0 in the bf16 conv kernels; no HMMA or HGMMA in any float32 one;
   2. kernel vs plain version on the card: edge shapes at every width of
-     the kernels (C = 16, whose bf16 passes are 16 channels wide, to 256)
-     in float32 (the SIMT conv kernels) and bfloat16 (the tensor-core
-     kernel), each held to its plain version within about a rounding of
-     its type, the shapes of a 768-frame mel (float32 timed: the latency
-     view), and the shapes of the batch-8, 1024-frame main path in both
-     types (timed: kernel, plain, the bound at the type's own peak, the
-     share of it reached, TFLOP/s of useful work and, in bf16, of the MMA
-     work the kernel issues);
+     the kernels (C = 8, V2's last stage, which the bf16 route pads to 16
+     channels, to 256) in float32 (the SIMT conv kernels) and bfloat16
+     (the wgmma conv kernels), each held to its plain version within about
+     a rounding of its type, the shapes of a 768-frame mel at B=1 and of
+     the batch-8, 1024-frame main path in both types (timed: kernel,
+     plain, the bound at the type's own peak, the share of it reached,
+     TFLOP/s of useful work and, in bf16, of the MMA work the kernel's
+     tiling issues, and beside each B=8 bf16 stage a cuDNN yardstick: the
+     18 ``F.conv1d`` in bf16 with the same elementwise ops, timed only);
   3. synthesis (random weights from a seed): B=1 from text at T=1, checked
      against the float32 acoustic model on the CPU and the plain vocoder on
      the card; B=8 at 96 tokens (mel bucket 1024) at T=1 and T=2, with the
@@ -75,8 +77,9 @@ exits non-zero):
      through a 20 ms batching window, a stream over three sentences (time
      to first byte), a long text through the chunked path, MRF launches 3
      fused and 1 streamed per device call; ``cli.p_rtf_cm`` over 16
-     utterances at batch 8; ``cli.synthesize`` with the V2 file (3 fused
-     launches and a plain last stage, against the plain V2 generator),
+     utterances at batch 8; ``cli.synthesize`` with the V2 file (4 fused
+     launches, its C = 8 last stage padded to 16 channels, against the
+     plain V2 generator),
      with MelGAN (card vs CPU) and with ``--lang zh``.  Its numbers go on
      a ``{"serve": {...}}`` line.
   9. the vocoder and speaker-encoder trainers under
@@ -201,33 +204,20 @@ def stage_flop(B, C, L, head: bool) -> int:
     return 252 * C * C * L * B + (14 * C * L * B if head else 0)
 
 
-def issued_flop(mrf, B, C, L, head: bool, pass_tiles: int = 0) -> int:
-    """FLOP of the MMAs the bf16 kernel issues for one stage: per length
-    tile, each conv over its region (the halo recomputed) rounded up to 16
-    positions, in warp passes of ``pass_tiles`` m16 tiles that always run
-    whole (csrc/mrf_tc.cu's work split).  Over stage_flop, it is the work
-    the tiling adds; with ``pass_tiles`` = 1, the part of it that the halo
-    and the rounding to 16 positions add.  0 means the kernel's own."""
-    pass_tiles = pass_tiles or mrf.PASS_TILES
-    pad = 3 if head else 0
-    tile = mrf.plan_tile(C, L, mrf.receptive_radius(KS, DS) + pad, pad)
-    n_cog = C // 32 if C % 32 == 0 else C // 16   # c_out groups
-    flop = 0
-    for k in KS:
-        half = (k - 1) // 2
-        rem = pad + sum(half * d + half for d in DS)
-        for d in DS:
-            for shrink in (half * d, half):   # conv1, then conv2
-                rem -= shrink
-                tiles_m = -(-(tile + 2 * rem) // 16)
-                units = n_cog * tiles_m
-                for w in range(mrf.WARPS):
-                    u, u_end = (w * units // mrf.WARPS,
-                                (w + 1) * units // mrf.WARPS)
-                    while u < u_end:
-                        u += min(pass_tiles, tiles_m - u % tiles_m, u_end - u)
-                        flop += pass_tiles * 16 * (C // n_cog) * 2 * k * C
-    return flop * -(-L // tile) * B
+def issued_flop(mrf, B, C, L, head: bool) -> int:
+    """FLOP of the MMAs the bf16 route issues for one stage: each conv
+    over whole blocks of BM positions (csrc/mrf_wg.cu's tiling, BM = 128
+    MT) and whole weight tiles of 64 K values, with its channels padded
+    to Cp, plus the head's useful work.  Over stage_flop, it is the work
+    the tiling adds: the last block's positions past L, the zero steps
+    that fill a conv's last tile (C <= 32) and, at C = 8, the padded
+    channels."""
+    Cp = mrf.padded_channels(C)
+    _, mt = mrf.wg_tiling(Cp)
+    rows = -(-L // (128 * mt)) * 128 * mt
+    k_padded = sum(mrf.wg_tile_count(Cp, k) * mrf.WG_TILE_K for k in KS)
+    return (2 * len(DS) * 2 * rows * Cp * k_padded * B
+            + (14 * C * L * B if head else 0))
 
 
 def stage_bound(B, C, L, head: bool, dtype):
@@ -267,6 +257,50 @@ def run_stage(mrf, x, packs, dtype, post, streamed):
     return lambda: mrf.fused_mrf_stage(x, packs[dtype], KS, DS, dtype, post=p)
 
 
+def cudnn_stage(x, pack, dtype, post):
+    """The bf16 yardstick of one stage: its 18 convs as ``F.conv1d`` on
+    bf16 tensors (cuDNN's bf16 kernels) with the same elementwise ops in
+    bf16 and the ResBlock sum in f32.  Timed beside the kernel only; the
+    port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    w, b, _ = pack
+    C = x.shape[1]
+    convs, off = [], 0
+    for k in KS:
+        for _ in range(2 * len(DS)):
+            n = len(convs)
+            convs.append((w[off: off + k * C * C].view(k, C, C)
+                          .permute(2, 1, 0).contiguous(),
+                          b[n * C: (n + 1) * C].to(dtype)))
+            off += k * C * C
+
+    def lrelu(v, s=0.1):
+        return torch.maximum(v, v * s)
+
+    def run():
+        acc, i = None, 0
+        for k in KS:
+            y = x.to(dtype)
+            for d in DS:
+                (w1, b1), (w2, b2) = convs[i], convs[i + 1]
+                i += 2
+                h = lrelu(F.conv1d(lrelu(y), w1, b1, padding=(k - 1) // 2 * d,
+                                   dilation=d))
+                y = y + F.conv1d(h, w2, b2, padding=(k - 1) // 2)
+            acc = y.float() if acc is None else acc + y.float()
+        out = acc / len(KS)
+        if post is None:
+            return out
+        wp, bp = post[dtype]
+        wav = F.conv1d(lrelu(out.to(dtype), 0.01), wp.t()[None],
+                       bp.to(dtype), padding=(wp.shape[0] - 1) // 2)
+        return torch.tanh(wav.float())[:, 0]
+
+    return run
+
+
 def plain_stage(mrf, x, packs, dtype, post):
     w, b, _ = packs[dtype]
     p = None if post is None else post[dtype]
@@ -291,15 +325,40 @@ def kernel_sections(text: str):
     return out
 
 
+def wg_ptxas_faults(text: str) -> list:
+    """Faults of the bf16 conv kernels (``mrf_conv_wg``) in an ``nvcc
+    -Xptxas -v`` log: a spill store or load, and any wgmma that ptxas
+    serialised (its C7515-style performance warning names the function)."""
+    faults, fn = [], None
+    for line in text.splitlines():
+        m = (re.search(r"entry function '([^']+)'", line)
+             or re.search(r"Function properties for (\S+)", line))
+        if m:
+            fn = m.group(1)
+        if "wgmma" in line and "serialized" in line:
+            faults.append(line.strip())
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn and "mrf_conv_wg" in fn and (int(m.group(1))
+                                                  or int(m.group(2))):
+            faults.append(f"{fn}: {line.strip()}")
+    return faults
+
+
 def inspect_library(path: str) -> int:
     """Log each kernel's registers, stack and spills and return the count
-    of HMMA instructions in the SASS of the tensor-core kernel; raise if it
-    has none, or if any float32 kernel (every other one) has any."""
+    of HGMMA instructions in the SASS of the bf16 conv kernels; raise if
+    ptxas spilled or serialised wgmma in them, if they hold none, or if
+    any float32 kernel holds an HMMA or HGMMA."""
     with open(path + ".log") as f:   # nvcc -Xptxas -v, kept by the build
-        for line in f:
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill")):
-                log(f"  ptxas: {line.strip()}")
+        text = f.read()
+    for line in text.splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "wgmma")):
+            log(f"  ptxas: {line.strip()}")
+    faults = wg_ptxas_faults(text)
+    if faults:
+        raise AssertionError("ptxas, bf16 conv kernels: " + "; ".join(faults))
     usage = subprocess.run([cuda_tool("cuobjdump"), "-res-usage", path],
                            capture_output=True, text=True, check=True).stdout
     for name, lines in kernel_sections(usage).items():
@@ -307,17 +366,17 @@ def inspect_library(path: str) -> int:
             + " ".join(ln.strip() for ln in lines if "REG" in ln))
     sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", path],
                           capture_output=True, text=True, check=True).stdout
-    hmma = {name: sum("HMMA" in ln for ln in lines)
-            for name, lines in kernel_sections(sass).items()}
-    log(f"  HMMA instructions per kernel: {hmma}")
-    tc = sum(n for name, n in hmma.items() if "mrf_stage_tc_kernel" in name)
-    # every other kernel of the library is a float32 one (SIMT, no TF32)
-    simt = {name: n for name, n in hmma.items()
-            if "mrf_stage_tc_kernel" not in name}
-    if tc == 0 or not simt or any(simt.values()):
-        raise AssertionError(f"HMMA count: tensor-core kernel {tc}, "
-                             f"float32 kernels {simt}")
-    return tc
+    mma = {name: (sum("HGMMA" in ln for ln in lines),
+                  sum("HMMA" in ln for ln in lines))
+           for name, lines in kernel_sections(sass).items()}
+    log(f"  (HGMMA, HMMA) instructions per kernel: {mma}")
+    wg = {name: n for name, n in mma.items() if "mrf_conv_wg" in name}
+    f32 = {name: n for name, n in mma.items() if "f32" in name}
+    if (not wg or any(n[0] == 0 for n in wg.values()) or not f32
+            or any(sum(n) for n in f32.values())):
+        raise AssertionError(f"(HGMMA, HMMA): bf16 conv kernels {wg}, "
+                             f"float32 kernels {f32}")
+    return sum(n[0] for n in wg.values())
 
 
 def counted_synthesis(synth, seqs, counters, hop, **kw):
@@ -1751,7 +1810,7 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
     synthesize(base + ["--text", TEXT, "--vocoder_ckpt", gens["v2"][1],
                        "--out_dir", os.path.join(work, "v2")])
     walls["cli_v2_s"] = time.perf_counter() - t0
-    out["v2_cli_launches"] = expect_launches("V2 CLI", before, [3, 0])
+    out["v2_cli_launches"] = expect_launches("V2 CLI", before, [4, 0])
     v2 = load_hifigan(gens["v2"][1], cfg)
     s2 = Synthesizer(cfg, model, v2, T=1, device=device)
     out["v2_routes"] = s2.vocoder_packed.routes
@@ -1762,11 +1821,12 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
         * s2.sched.sigma_max
     before = launches()
     mel2, _, wav2 = s2([toks], x_T=x_T)
-    expect_launches("V2 synthesis", before, [3, 0])
+    expect_launches("V2 synthesis", before, [4, 0])
     with torch.no_grad():
         plain = gens["v2"][0](torch.from_numpy(mel2).to(dev)).cpu()
     out["err_v2_vs_plain"] = check(
-        "V2 (bf16 kernels + plain last stage) vs the plain V2 generator",
+        "V2 (bf16 kernels, the last stage padded to 16 channels) vs the "
+        "plain V2 generator",
         torch.from_numpy(wav2), plain, BF16_TOL)
     log(f"  cli.synthesize --vocoder_ckpt generator_v2.pth.tar: launches "
         f"{out['v2_cli_launches']}, routes {out['v2_routes']}; wav vs the "
@@ -3608,17 +3668,20 @@ def main(argv=None) -> int:
     build_s = mrf.build_kernels(force=True)
     log(f"# kernel build: {build_s:.1f} s (nvcc, sm_90a) -> "
         f"{os.path.relpath(mrf.library_path())}")
-    hmma = inspect_library(mrf.library_path())
+    hgmma = inspect_library(mrf.library_path())
 
     # -- phase 2: kernel vs plain ------------------------------------------
     torch.manual_seed(0)
     gen = HiFiGANGenerator().to(dev).eval()
-    # a narrow generator's first stage: C = 16, the bf16 kernel's passes of
-    # one pair of n8 tiles
+    # a narrow generator's first stage: C = 16, the bf16 route's narrowest
+    # block; V2's last stage: C = 8, which the bf16 route pads to 16
     narrow = HiFiGANGenerator(HiFiGANConfig(
         upsample_initial_channel=32)).to(dev).eval()
+    v2 = HiFiGANGenerator(HiFiGANConfig(
+        upsample_initial_channel=128)).to(dev).eval()
     chans = {gen.stage_channels(i): (gen, i) for i in range(4)}
     chans[narrow.stage_channels(0)] = (narrow, 0)
+    chans[v2.stage_channels(3)] = (v2, 3)
     dtypes = (torch.float32, torch.bfloat16)
     packs = {C: {dt: mrf.pack_mrf_params(g_, i, dt) for dt in dtypes}
              for C, (g_, i) in chans.items()}
@@ -3648,6 +3711,9 @@ def main(argv=None) -> int:
         if timed:
             res["ms"] = cuda_ms(kern)
             res["plain_ms"] = cuda_ms(plain)
+            if not f32 and B == 8:   # the cuDNN yardstick, timed only
+                res["library_ms"] = cuda_ms(
+                    cudnn_stage(x, packs[C][dtype], dtype, post))
             res["flop"] = stage_flop(B, C, L, head)
             res["tflops"] = res["flop"] / res["ms"] / 1e9
             res["of_bound"] = bound_ms / res["ms"]
@@ -3656,15 +3722,14 @@ def main(argv=None) -> int:
                     f"{res['of_bound']:.1%} of the bound")
             if f32:
                 note += ") "
-            else:   # the MMA work the bf16 kernel's tiling issues
+            else:   # the MMA work the bf16 route's tiling issues
                 issued = issued_flop(mrf, B, C, L, head)
                 res["issued_over_useful"] = issued / res["flop"]
                 res["issued_tflops"] = issued / res["ms"] / 1e9
-                res["halo_over_useful"] = (issued_flop(mrf, B, C, L, head, 1)
-                                           / res["flop"])
                 note += (f"; {res['issued_tflops']:.2f} issued = "
-                         f"{res['issued_over_useful']:.3f}x, of which halo "
-                         f"and rounding {res['halo_over_useful']:.3f}x) ")
+                         f"{res['issued_over_useful']:.3f}x) ")
+                if "library_ms" in res:
+                    note += f"cuDNN bf16 {res['library_ms']:.3f} ms "
         log(f"  {label:9s} {'streamed' if streamed else 'fused':8s} B={B} "
             f"C={C:3d} L={L:6d} head={int(head)} "
             f"{str(dtype).split('.')[-1]:8s} max|err|={err:.3e} {note}"
@@ -3674,16 +3739,17 @@ def main(argv=None) -> int:
     log("# phase 2: kernel vs plain version (f32 tol "
         f"{F32_TOL}, bf16 tol {BF16_STAGE_TOL})")
     for dtype in dtypes:
-        for C in (16, 32, 64, 128, 256):
+        for C in (8, 16, 32, 64, 128, 256):
             for L in (40, 50, 300, 1237):
                 for head in ((False,) if C > 128 else (False, True)):
                     case("edge", 2, C, L, head, dtype)
     stages = ((256, 8), (128, 64), (64, 128), (32, 256))
-    # the stages of a 768-frame mel, B=1: float32 timed (the latency view)
+    # the stages of a 768-frame mel, B=1, timed (the latency view)
+    timing_b1 = {dt: [] for dt in dtypes}
     for dtype in dtypes:
         for i, (C, up) in enumerate(stages):
-            case("mel768", 1, C, 768 * up, i == 3, dtype,
-                 timed=dtype == torch.float32)
+            timing_b1[dtype].append(case("mel768", 1, C, 768 * up, i == 3,
+                                         dtype, timed=True))
     # the main path's B=8, mel-1024 stages, timed in both types
     timing = {dt: {"fused": [], "streamed": []} for dt in dtypes}
     for dtype in dtypes:
@@ -3692,21 +3758,32 @@ def main(argv=None) -> int:
                        seed=i)
             timing[dtype]["streamed" if C > 128 else "fused"].append(res)
     for dtype in dtypes:
-        rows = timing[dtype]["streamed"] + timing[dtype]["fused"]
-        ms = sum(r_["ms"] for r_ in rows)
-        bound = sum(r_["bound_ms"] for r_ in rows)
-        log(f"  main, four stages, {str(dtype).split('.')[-1]}: {ms:.3f} ms, "
-            f"{sum(r_['flop'] for r_ in rows) / ms / 1e9:.2f} TFLOP/s "
-            f"useful, bound {bound:.3f} ms ({bound / ms:.1%}), plain "
-            f"{sum(r_['plain_ms'] for r_ in rows):.3f} ms")
-    stage_keys = ("ms", "plain_ms", "bound_ms", "tflops", "of_bound", "err",
-                  "issued_tflops", "issued_over_useful", "halo_over_useful")
-    stages_b8 = {str(dt).split(".")[-1]: [
-        {k_: r_[k_] for k_ in stage_keys if k_ in r_}
-        for r_ in timing[dt]["streamed"] + timing[dt]["fused"]]
-        for dt in dtypes}
+        for label, rows in (
+                ("main B=8 mel 1024",
+                 timing[dtype]["streamed"] + timing[dtype]["fused"]),
+                ("B=1 mel 768", timing_b1[dtype])):
+            ms = sum(r_["ms"] for r_ in rows)
+            bound = sum(r_["bound_ms"] for r_ in rows)
+            lib = ("" if "library_ms" not in rows[0] else
+                   f", cuDNN bf16 {sum(r_['library_ms'] for r_ in rows):.3f}"
+                   " ms")
+            log(f"  {label}, four stages, {str(dtype).split('.')[-1]}: "
+                f"{ms:.3f} ms, {sum(r_['flop'] for r_ in rows) / ms / 1e9:.2f}"
+                f" TFLOP/s useful, bound {bound:.3f} ms ({bound / ms:.1%}), "
+                f"plain {sum(r_['plain_ms'] for r_ in rows):.3f} ms{lib}")
+    stage_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "tflops",
+                  "of_bound", "err", "issued_tflops", "issued_over_useful")
+
+    def stage_rows(rows):
+        return [{k_: r_[k_] for k_ in stage_keys if k_ in r_} for r_ in rows]
+
+    stages_b8 = {str(dt).split(".")[-1]: stage_rows(
+        timing[dt]["streamed"] + timing[dt]["fused"]) for dt in dtypes}
+    stages_b1 = {str(dt).split(".")[-1]: stage_rows(timing_b1[dt])
+                 for dt in dtypes}
     if kernels_only:
-        print(json.dumps({"build_s": build_s, "stages_B8": stages_b8}))
+        print(json.dumps({"build_s": build_s, "stages_B8": stages_b8,
+                          "stages_B1_mel768": stages_b1}))
         print(smi)
         return 0
 
@@ -3848,8 +3925,9 @@ def main(argv=None) -> int:
               "10": parallel["launches"], "11": image["launches"],
               "12": quality["launches"]}
     for dtype, src, design, note in (
-            (torch.bfloat16, "cmtts_tpu_torch/csrc/mrf_tc.cu",
-             "mma.sync bf16, one fused launch a stage",
+            (torch.bfloat16, "cmtts_tpu_torch/csrc/mrf_wg.cu",
+             "wgmma bf16 implicit GEMM, one launch a conv (+ cast, head); "
+             "weight tiles by bulk async copies through an mbarrier ring",
              "phase 12 counts its in-process launches; the scripts' CLIs "
              "(cli.serve with HiFi-GAN among them) launch theirs in "
              "subprocesses, not counted; phase 3 less its float32 call"),
@@ -3875,7 +3953,7 @@ def main(argv=None) -> int:
                 "dtype": str(dtype).split(".")[-1], "design": design,
                 "launches": sum(by_phase.values()),
                 "launches_by_phase": by_phase, "launches_note": note,
-                **({} if f32 else {"hmma_in_sass": hmma}),
+                **({} if f32 else {"hgmma_in_sass": hgmma}),
                 "max_abs_err": max(r_["err"] for r_ in rows),
                 "ms": ms,
                 "tflops": sum(r_["flop"] for r_ in rows) / ms / 1e9,
@@ -3884,9 +3962,12 @@ def main(argv=None) -> int:
                 "bound_by": ("operations" if all(
                     r_["bound_by"] == "operations" for r_ in rows)
                     else "bytes"),
-                "library_ms": None})
+                # bf16: the cuDNN yardstick (18 F.conv1d in bf16 a stage,
+                # timed only); float32: no single PyTorch call
+                "library_ms": (None if f32 else
+                               sum(r_["library_ms"] for r_ in rows))})
     print(json.dumps({"rtf": results, "build_s": build_s,
-                      "stages_B8": stages_b8}))
+                      "stages_B8": stages_b8, "stages_B1_mel768": stages_b1}))
     print(json.dumps({"train": train}))
     print(json.dumps({"data": data}))
     print(json.dumps({"serve": served}))

@@ -1,7 +1,7 @@
 // Multi-receptive-field (MRF) stage of the HiFi-GAN generator, for sm_90a:
-// the float32 path (SIMT, strict IEEE f32 FMAs: no TF32, no HMMA) and the C
-// entry points of both types.  The bfloat16 path runs on tensor cores in
-// mrf_tc.cu.  Both serve the two Python entry points of
+// the float32 path (SIMT, strict IEEE f32 FMAs: no TF32, no HMMA) and its C
+// entry point.  The bfloat16 path runs on tensor cores in mrf_wg.cu.  Both
+// serve the two Python entry points of
 // cmtts_tpu_torch/ops/mrf.py:
 //   fused_mrf_stage          <- cmtts_tpu/ops/mrf_pallas.py::fused_mrf_stage
 //                               (C <= 128, optional fused generator head)
@@ -360,27 +360,4 @@ extern "C" int mrf_stage_f32(const float* x, float* out, const float* w,
   mrf_head_f32_kernel<<<grid, kHeadT, 0, st>>>(s, w_post, b_post, out, C, L,
                                                post_k);
   return (int)cudaGetLastError();
-}
-
-// The bfloat16 stage on tensor cores (mrf_tc.cu, w in B-fragment order).
-// Returns a cudaError_t; 0 means launched.
-extern "C" int mrf_stage(const float* x, float* out, const void* w,
-                         const float* bias, const void* w_post,
-                         const float* b_post, int B, int C, int L, int tile,
-                         int halo, int pad, int nblk, int npair,
-                         const int* ks, const int* ds, int post_k,
-                         int smem_bytes, void* stream) {
-  using namespace mrf;
-  if (nblk > kMaxBlocks || npair > kMaxPairs) {
-    return (int)cudaErrorInvalidValue;
-  }
-  MrfArgs a;
-  a.x = x; a.out = out; a.w = w; a.bias = bias;
-  a.w_post = w_post; a.b_post = b_post; a.scratch = nullptr;
-  a.B = B; a.C = C; a.L = L;
-  a.tile = tile; a.halo = halo; a.W = tile + 2 * halo; a.pad = pad;
-  a.nblk = nblk; a.npair = npair; a.post_k = post_k;
-  for (int i = 0; i < kMaxBlocks; ++i) a.ks[i] = i < nblk ? ks[i] : 1;
-  for (int i = 0; i < kMaxPairs; ++i) a.ds[i] = i < npair ? ds[i] : 1;
-  return launch_tc(a, smem_bytes, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -10,8 +10,8 @@ Other widths (``upsample_initial_channel``, 128 for V2) keep the layout.
 stack).  :func:`hifigan_apply_fused` is the synthesis path: on the card
 each MRF stage whose shape the port's CUDA kernels take runs them (the
 C = 256 stage the streamed one, C <= 128 stages the fused one, with the head
-fused into the last stage); a stage they do not take (C = 8 in bfloat16, at
-the V2 width) runs the plain stage.  The route of each stage is fixed when
+fused into the last stage); a stage they do not take (C not a multiple of
+8, as the last stage of a width-64 generator) runs the plain stage.  The route of each stage is fixed when
 the weights are packed (:func:`stage_routes`).  Transposed convs and
 ``conv_pre`` stay ordinary torch ops, as the JAX package leaves them to XLA.
 Layout is channels-first inside; the public layouts stay JAX's: mel
@@ -147,7 +147,7 @@ def init_like_flax(gen: HiFiGANGenerator,
 
 class GeneratorPack(NamedTuple):
     """:func:`pack_generator`'s output: per stage the :func:`pack_mrf_params`
-    pack ``(w, b, w_frag)`` and the route it takes, and the packed head."""
+    pack ``(w, b, w_tiles)`` and the route it takes, and the packed head."""
 
     stages: list
     post: tuple
@@ -159,9 +159,10 @@ def stage_routes(gen: HiFiGANGenerator, compute_dtype=torch.bfloat16):
     shapes alone: ``fused`` or ``streamed`` (C > FUSED_MAX_C) where
     :func:`~cmtts_tpu_torch.ops.mrf.kernel_takes` holds, else ``plain``
     (``mrf_stage_plain``); the last stage carries the head (``+head``).
-    Width 512 gives [streamed, fused, fused, fused+head]; width 128 (V2) in
-    bfloat16 [fused, fused, fused, plain+head], whose C = 8 is not a
-    multiple of the k16 step."""
+    Width 512 gives [streamed, fused, fused, fused+head]; width 128 (V2)
+    [fused, fused, fused, fused+head], its last stage's C = 8 running the
+    bf16 kernel padded to 16 channels; width 64 ends in C = 4, which
+    neither kernel takes: [fused, fused, fused, plain+head]."""
     c = gen.cfg
     ks, ds = tuple(c.resblock_kernel_sizes), tuple(c.resblock_dilation_sizes[0])
     n = len(c.upsample_rates)

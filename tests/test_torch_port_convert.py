@@ -166,9 +166,9 @@ def test_hifigan_pth_tar_matches_jax(width, tmp_path):
 def test_vocoder_stage_routes(width, dtype):
     """Each MRF stage goes to a kernel whose shape predicate holds or to
     the plain stage, decided at pack time: width 512 as before, the V2
-    width (128) in bf16 three fused stages and a plain last stage with its
-    head (C = 8 is not a multiple of the bf16 kernel's k16 step), in f32
-    four fused stages."""
+    width (128) four fused stages in both types (in bf16 its C = 8 last
+    stage is padded to 16 channels), width 64 a plain last stage with its
+    head (C = 4)."""
     from cmtts_tpu_torch.models.hifigan import (
         FUSED_MAX_C,
         HiFiGANConfig,
@@ -190,17 +190,17 @@ def test_vocoder_stage_routes(width, dtype):
             assert C > FUSED_MAX_C
     expected = {
         (512, torch.bfloat16): ["streamed", "fused", "fused", "fused+head"],
-        (128, torch.bfloat16): ["fused", "fused", "fused", "plain+head"],
+        (128, torch.bfloat16): ["fused", "fused", "fused", "fused+head"],
         (128, torch.float32): ["fused", "fused", "fused", "fused+head"],
-        (64, torch.bfloat16): ["fused", "fused", "plain", "plain+head"]}
+        (64, torch.bfloat16): ["fused", "fused", "fused", "plain+head"]}
     if (width, dtype) in expected:
         assert routes == expected[(width, dtype)]
 
 
 def test_hifigan_apply_fused_follows_the_route(monkeypatch):
     """``hifigan_apply_fused`` calls, stage by stage, what the pack's routes
-    say (a width-64 generator in bf16: two fused, then plain, plain with
-    the head), and its output is the one without the recording."""
+    say (a width-64 generator in bf16: three fused, then plain with the
+    head), and its output is the one without the recording."""
     from cmtts_tpu_torch.models import hifigan
     from cmtts_tpu_torch.ops import mrf
 
@@ -228,7 +228,7 @@ def test_hifigan_apply_fused_follows_the_route(monkeypatch):
         monkeypatch.setattr(hifigan, attr,
                             recording(name, getattr(hifigan, attr)))
     out = hifigan.hifigan_apply_fused(gen, mel, packed)
-    assert calls == packed.routes == ["fused", "fused", "plain",
+    assert calls == packed.routes == ["fused", "fused", "fused",
                                       "plain+head"]
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 

@@ -120,38 +120,6 @@ def test_plain_bf16_stays_near_f32():
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0.1, atol=0.05)
 
 
-def test_plan_tile_fits_shared_memory():
-    # bf16 at every generator width, with and without the head, in the
-    # tensor-core kernel's [W][C + 8] rows
-    for C in (32, 64, 128, 256):
-        for pad in (0, 3):
-            halo = mrf.receptive_radius(KS, DS) + pad
-            tile = mrf.plan_tile(C, 100000, halo, pad)
-            assert tile >= 32 and tile % 32 == 0
-            nbytes = mrf._smem_bytes(C, tile, halo, pad)
-            assert nbytes <= mrf.SMEM_LIMIT
-            assert nbytes == (2 * (tile + 2 * halo) * (C + 8) * 2
-                              + (C * (tile + 2 * pad) * 4 if pad else 0))
-            assert (C + 8) * 2 % 32 == 16  # odd multiple of 16 bytes
-    # the main path's tiles: 96 at C=256, 288 at 128, 512 at 64 and at 32
-    # with the head
-    halo = mrf.receptive_radius(KS, DS)
-    for C, pad, want in ((256, 0, 96), (128, 0, 288), (64, 0, 512),
-                         (32, 3, 512)):
-        assert mrf.plan_tile(C, 100000, halo + pad, pad) == want
-    # f32 plans no length tile: every width runs one launch a conv, whose
-    # block (BM positions x BN channels, two ring slots of a K-chunk) fits
-    # twice in an SM's shared memory from BN = 32 on
-    assert [mrf.conv_block(C) for C in (256, 128, 64, 32, 16, 8)] == [
-        (128, 128), (128, 128), (256, 64), (512, 32), (1024, 16), (2048, 8)]
-    for C in (256, 128, 64, 32):
-        worst = mrf.conv_smem_bytes(C, 11, 5)
-        assert worst == 4 * 2 * 8 * (mrf.conv_block(C)[0] + 52 + 11
-                                     * mrf.conv_block(C)[1])
-        assert 2 * (worst + 1024) <= 233472      # the SM's shared memory
-    assert mrf.plan_tile(32, 40, 63, 3) == 64
-
-
 @pytest.fixture(scope="module")
 def flax_generator():
     """A width-64 flax HiFiGANGenerator (16 mels) and its params."""
@@ -222,88 +190,6 @@ def test_bridge_hifigan_strict_roundtrip(flax_generator):
         np.transpose(params["res_2_1"]["conv1_2"]["kernel"], (2, 1, 0)))
 
 
-def emulate_kernel(x, w, b, tile, halo, post=None):
-    """The CUDA kernels' tiling in numpy-like torch: per length tile, a
-    window with a halo, each conv computed only on the region later convs
-    need (rounded up to 16 rows, as the bf16 kernel computes it), the rest
-    of the buffer poisoned with NaN so that a read outside the computed
-    region shows in the result."""
-    B, C, L = x.shape
-    pad = 0 if post is None else (post[0].shape[0] - 1) // 2
-    W = tile + 2 * halo
-    lrelu = lambda v, s=0.1: torch.maximum(v, v * s)  # noqa: E731
-    convs = list(mrf._unpacked(w, b, C, KS, len(DS)))
-    out = torch.zeros((B, L) if post is not None else (B, C, L))
-    for bi in range(B):
-        for t0 in range(0, L, tile):
-            g = torch.arange(W) + t0 - halo
-            valid = (g >= 0) & (g < L)
-            xw = torch.zeros(C, W)
-            xw[:, valid] = x[bi][:, g[valid]]
-            acc = torch.zeros(C, W)
-            for k, pairs in convs:
-                half = (k - 1) // 2
-                rem = pad + sum(half * d + half for d in DS)
-                y = xw.clone()
-
-                def conv(src, wt, bias, d, rem):
-                    lo, hi = halo - rem, halo + tile + rem
-                    p = torch.arange(lo, hi)
-                    # the region rounded up to the bf16 kernel's 16-row
-                    # m tiles; a padding row reads the last position's
-                    # inputs (the kernel's clamp) and is never stored
-                    rows = torch.arange(lo, lo + -(-(hi - lo) // 16) * 16)
-                    rows = rows.clamp(max=hi - 1)
-                    o = torch.full((C, W), float("nan"))
-                    s = sum(wt[:, :, tap] @ src[:, rows + (tap - half) * d]
-                            for tap in range(k)) + bias[:, None]
-                    assert torch.isfinite(s).all()
-                    o[:, p] = torch.where(valid[p], s[:, :hi - lo],
-                                          torch.zeros(()))
-                    return o, p
-
-                for (w1, b1, w2, b2), d in zip(pairs, DS):
-                    rem -= half * d
-                    h, _ = conv(lrelu(y), w1, b1, d, rem)
-                    rem -= half
-                    h2, p = conv(lrelu(h), w2, b2, 1, rem)
-                    y_new = torch.full((C, W), float("nan"))
-                    y_new[:, p] = y[:, p] + h2[:, p]
-                    y = y_new
-                acc = acc + y
-            acc = acc / len(KS)
-            n = min(tile, L - t0)
-            if post is None:
-                out[bi, :, t0:t0 + n] = acc[:, halo:halo + n]
-            else:
-                wp, bp = post
-                u = torch.arange(halo, halo + n)
-                s = sum(wp[tap] @ lrelu(acc[:, u + tap - pad], 0.01)
-                        for tap in range(wp.shape[0])) + bp
-                out[bi, t0:t0 + n] = torch.tanh(s)
-    return out
-
-
-@pytest.mark.parametrize("L,tile,head", [
-    (40, 64, False), (40, 64, True), (50, 32, True), (300, 128, False),
-    (333, 96, True), (333, 160, False)])
-def test_kernel_tiling_matches_plain(L, tile, head):
-    """Halo, shrinking regions and masks of the kernel's design reproduce
-    the plain stage for L < halo, ragged last tiles and single tiles."""
-    C = 16
-    _, stage = flax_stage(C, seed=4)
-    x = torch.from_numpy(
-        np.random.RandomState(4).randn(2, C, L).astype(np.float32) * 0.3)
-    packed = w, b, _ = mrf.pack_mrf_params(stage, 0)
-    post = mrf.pack_post_params(stage) if head else None
-    halo = mrf.receptive_radius(KS, DS) + (3 if head else 0)
-    ref = mrf.fused_mrf_stage(x, packed, post=post)
-    with torch.no_grad():
-        out = emulate_kernel(x, w, b, tile, halo, post)
-    assert torch.isfinite(out).all()
-    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=2e-5, atol=2e-5)
-
-
 def test_launch_rejects_malformed_inputs():
     """The kernel wrapper checks shapes and types before it hands pointers
     to the library (checked on CPU tensors: every case fails first)."""
@@ -328,11 +214,11 @@ def test_launch_rejects_malformed_inputs():
     for xx, ww, bb, dt, pp in bad:
         with pytest.raises(ValueError):
             mrf._launch(xx, (ww, bb, None), KS, DS, dt, pp)
-    # bf16: the tensor-core kernel reads the fragment-ordered weights
-    wb, _, wf = mrf.pack_mrf_params(stage, 0, torch.bfloat16)
-    for frag in (None, wf[:-1], wf.float(), wf.view(2, -1).t()):
+    # bf16: the wgmma kernel reads the weights as B tiles
+    wb, _, wt = mrf.pack_mrf_params(stage, 0, torch.bfloat16)
+    for tiles in (None, wt[:-1], wt.float(), wt.view(2, -1).t()):
         with pytest.raises(ValueError):
-            mrf._launch(x, (wb, b, frag), KS, DS, torch.bfloat16, None)
-    with pytest.raises(ValueError):                          # C % 16
-        mrf._launch(torch.zeros(1, 8, L), (wb[: 2 * 3 * 21 * 64], b[:144],
-                    wf[: 2 * 3 * 21 * 64]), KS, DS, torch.bfloat16, None)
+            mrf._launch(x, (wb, b, tiles), KS, DS, torch.bfloat16, None)
+    with pytest.raises(ValueError):                          # C % 8
+        mrf._launch(torch.zeros(1, 12, L), (wb[: 2 * 3 * 21 * 144],
+                    b[:216], wt), KS, DS, torch.bfloat16, None)

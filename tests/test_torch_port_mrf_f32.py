@@ -231,6 +231,19 @@ def test_thread_map_covers_each_output_once(C):
             wa + k * bn)
 
 
+def test_f32_conv_blocks_fit_shared_memory():
+    """Float32 plans no length tile: every width runs one launch a conv,
+    whose block (BM positions x BN channels, two ring slots of a K-chunk)
+    fits twice in an SM's shared memory from BN = 32 on."""
+    assert [mrf.conv_block(C) for C in (256, 128, 64, 32, 16, 8)] == [
+        (128, 128), (128, 128), (256, 64), (512, 32), (1024, 16), (2048, 8)]
+    for C in (256, 128, 64, 32):
+        worst = mrf.conv_smem_bytes(C, 11, 5)
+        assert worst == 4 * 2 * 8 * (mrf.conv_block(C)[0] + 52 + 11
+                                     * mrf.conv_block(C)[1])
+        assert 2 * (worst + 1024) <= 233472      # the SM's shared memory
+
+
 def test_kernel_takes_float32_shapes():
     """Float32 takes C a multiple of 8 with a head of up to 17 taps, and
     refuses a conv whose block does not fit in shared memory."""
