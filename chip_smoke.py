@@ -383,14 +383,35 @@ def inspect_library(path: str) -> int:
     return sum(n[0] for n in wg.values())
 
 
+_LAUNCHES_AT_ZERO: dict = {}
+
+
+def zero_launches(fns) -> None:
+    """Count the MRF entry points ``fns``' launches afresh from here."""
+    from cmtts_tpu_torch.core.trace import counters
+
+    now = counters()
+    for fn in fns:
+        _LAUNCHES_AT_ZERO[fn.__name__] = now.get("mrf." + fn.__name__, 0)
+
+
+def mrf_launches(fn) -> int:
+    """The launches of the MRF entry point ``fn`` since
+    :func:`zero_launches` (the port's ``mrf.<name>`` counter)."""
+    from cmtts_tpu_torch.core.trace import counters
+
+    return (counters().get("mrf." + fn.__name__, 0)
+            - _LAUNCHES_AT_ZERO.get(fn.__name__, 0))
+
+
 def counted_synthesis(synth, seqs, counters, hop, **kw):
     """One synthesis call that must launch each MRF kernel as a synthesis
     call does (3 fused stages, 1 streamed) and return finite outputs."""
     import torch
 
-    before = [fn.launches for fn in counters]
+    before = [mrf_launches(fn) for fn in counters]
     mel, lens, wav = synth(seqs, **kw)
-    rose = [fn.launches - b for fn, b in zip(counters, before)]
+    rose = [mrf_launches(fn) - b for fn, b in zip(counters, before)]
     if rose != [3, 1]:
         raise AssertionError(f"kernel launches per call {rose} != [3, 1]")
     t_mel = mel.shape[1]
@@ -507,8 +528,7 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
     if emb.shape[0] != cfg.model.external_speaker_dim:
         raise AssertionError(f"DeepSpeaker width {emb.shape[0]}")
 
-    for fn in counters:
-        fn.launches = 0
+    zero_launches(counters)
 
     def counted(synth, seqs, **kw):
         return counted_synthesis(synth, seqs, counters, hop, **kw)
@@ -602,10 +622,10 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
 
     # 5. long-form synthesis over three chunks, then the zero-shot CLI
     chunks = [tokens[:30], tokens[30:55], tokens[55:]]
-    before = [fn.launches for fn in counters]
+    before = [mrf_launches(fn) for fn in counters]
     wav_l, mels_l, lens_l = synthesize_long(synth1, chunks, spker_embed=emb,
                                             gap_ms=150.0)
-    if [fn.launches - b for fn, b in zip(counters, before)] != [3, 1]:
+    if [mrf_launches(fn) - b for fn, b in zip(counters, before)] != [3, 1]:
         raise AssertionError("synthesize_long: not one batched call")
     gap = int(sr * 0.15)
     if (len(mels_l) != 3 or not np.isfinite(wav_l).all()
@@ -614,7 +634,7 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
                              f"{len(wav_l)} samples, lens {lens_l}")
     log(f"  synthesize_long: 3 chunks, mel_lens "
         f"{lens_l.tolist()}, {len(wav_l) / sr:.3f} s spliced")
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = {fn.__name__: mrf_launches(fn) for fn in counters}
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never ran on the zero-shot path: "
                              f"{launches}")
@@ -1066,16 +1086,15 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
     if len(losses) != 6 or not np.isfinite(losses).all():
         raise AssertionError(f"CLI losses {losses}")
     del r1, r2, a, b, trees
-    for fn in counters:
-        fn.launches = 0
+    zero_launches(counters)
     out_dir = os.path.join(work, "synth")
     t1 = time.perf_counter()
     synthesize(["--mode", "single", "--text", TEXT, "--dataset", "LJSpeech",
                 "--config_root", config_root, "--restore_step", "6", "--T",
                 "1", "--out_dir", out_dir, "--device", device])
     walls["synthesize_s"] = time.perf_counter() - t1
-    launches = {fn.__name__: fn.launches for fn in counters}
-    if [fn.launches for fn in counters] != [3, 1]:
+    launches = {fn.__name__: mrf_launches(fn) for fn in counters}
+    if [mrf_launches(fn) for fn in counters] != [3, 1]:
         raise AssertionError(f"synthesis from the checkpoint launched "
                              f"{launches}, not [3, 1]")
     mel = np.load(os.path.join(out_dir, "single-mel.npy"))
@@ -1354,15 +1373,14 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
     del r
 
     # 4. batch synthesis of the val set from the latest checkpoint
-    for fn in counters:
-        fn.launches = 0
+    zero_launches(counters)
     t0 = time.perf_counter()
     syn_dir = synthesize(["--mode", "batch", "--source",
                           os.path.join(pre, "val.txt"), "--restore_step",
                           "0"] + common)
     walls["synthesize_s"] = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
-    if cuda and [fn.launches for fn in counters] != [3, 1]:
+    launches = {fn.__name__: mrf_launches(fn) for fn in counters}
+    if cuda and [mrf_launches(fn) for fn in counters] != [3, 1]:
         raise AssertionError(f"batch synthesis launched {launches}, not "
                              f"[3, 1]")
     with open(os.path.join(pre, "val.txt")) as f:
@@ -1569,11 +1587,10 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
     cfg = load_configs("LJSpeech", cfg_root)
     hop, sr = cfg.stft.hop_length, cfg.stft.sampling_rate
     out, walls = {}, {}
-    for fn in counters:
-        fn.launches = 0
+    zero_launches(counters)
 
     def launches():
-        return [fn.launches for fn in counters]
+        return [mrf_launches(fn) for fn in counters]
 
     def expect_launches(what, before, per_call):
         rose = [a - b for a, b in zip(launches(), before)]
@@ -1863,7 +1880,7 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
     log(f"  cli.synthesize --lang zh 'ni3 hao3 shi4 jie4': {len(mel_zh)} "
         f"frames")
 
-    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    out["launches"] = {fn.__name__: mrf_launches(fn) for fn in counters}
     if cuda and min(out["launches"].values()) == 0:
         raise AssertionError(f"a kernel never ran in phase 8: "
                              f"{out['launches']}")
@@ -2100,8 +2117,7 @@ def trainers_phase(counters, root: str, device: str = "cuda",
     work = os.path.join(root, "build", "chip_smoke_trainers")
     shutil.rmtree(work, ignore_errors=True)
     out, walls = {}, {}
-    for fn in counters:
-        fn.launches = 0
+    zero_launches(counters)
 
     # 1. the corpus: 8 speakers x 12 utterances, 2 held out
     t0 = time.perf_counter()
@@ -2253,9 +2269,9 @@ def trainers_phase(counters, root: str, device: str = "cuda",
     synth = Synthesizer(lj, cm, trained, T=1, device=device)
     seqs = [np.random.RandomState(i).randint(13, 140, 96 if cuda else 12)
             .astype(np.int32) for i in range(8)]
-    before = [fn.launches for fn in counters]
+    before = [mrf_launches(fn) for fn in counters]
     mel, lens, wav = synth(seqs, mel_bucket=1024 if cuda else 128)
-    rose = [fn.launches - b for fn, b in zip(counters, before)]
+    rose = [mrf_launches(fn) - b for fn, b in zip(counters, before)]
     if cuda and rose != [3, 1]:
         raise AssertionError(f"trained generator: MRF launches {rose}")
     with torch.no_grad():
@@ -2358,7 +2374,7 @@ def trainers_phase(counters, root: str, device: str = "cuda",
         f"ge2e_from_checkpoint and PreDefinedEmbedder (GE2E): a 3 s wav -> "
         f"{emb.shape[0]} features, norm {np.linalg.norm(emb):.4f}")
 
-    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    out["launches"] = {fn.__name__: mrf_launches(fn) for fn in counters}
     if cuda and min(out["launches"].values()) == 0:
         raise AssertionError(f"a kernel never ran in phase 9: "
                              f"{out['launches']}")
@@ -2504,15 +2520,14 @@ def parallel_rank(rank: int, world: int, port: int, work: str, device: str,
         out["tp2_vs_whole_ok"] = bool(torch.allclose(y, ref, **PAR_F32_TOL))
         del whole, split
         # dp=2 synthesis through the kernels
-        for fn in (mrf.fused_mrf_stage, mrf.fused_mrf_stage_streamed):
-            fn.launches = 0
+        zero_launches((mrf.fused_mrf_stage, mrf.fused_mrf_stage_streamed))
         synth = Synthesizer(cfg, syn, voc, device=dev, dp_group=dp_mesh.data)
         t0 = time.perf_counter()
         out["synth"] = synth(inp["seqs"], mel_bucket=inp["mel_bucket"],
                              seed=5)
         walls["dp2_synth_s"] = time.perf_counter() - t0
-        out["launches"] = [mrf.fused_mrf_stage.launches,
-                           mrf.fused_mrf_stage_streamed.launches]
+        out["launches"] = [mrf_launches(mrf.fused_mrf_stage),
+                           mrf_launches(mrf.fused_mrf_stage_streamed)]
         out["walls_s"] = walls
         torch.save(out, os.path.join(work, f"out_{rank}.pt"))
     finally:
@@ -2578,8 +2593,7 @@ def parallel_phase(counters, root: str, device: str = "cuda",
                             if tiny else {}))
     cfg = load_configs("LJSpeech", cfg_root)
     out, walls = {}, {}
-    for fn in counters:
-        fn.launches = 0
+    zero_launches(counters)
 
     # (a) the training CLI under torch.distributed.run, in the background
     prof = os.path.join(work, "profile")
@@ -2647,7 +2661,7 @@ def parallel_phase(counters, root: str, device: str = "cuda",
             del state, ct
             synth1 = Synthesizer(cfg, syn, voc, device=dev)
             mel1, lens1, wav1 = synth1(seqs, mel_bucket=mel_bucket, seed=5)
-            one_launches = [fn.launches for fn in counters]
+            one_launches = [mrf_launches(fn) for fn in counters]
         finally:
             codes = join_ranks(ranks, 300)
         walls["ranks_s"] = time.perf_counter() - t_ranks
@@ -2795,7 +2809,7 @@ def parallel_phase(counters, root: str, device: str = "cuda",
         f"8 steps in {walls['train_cli_s']:.1f} s, trace "
         f"{out['train_cli']['trace_bytes']} bytes")
 
-    out["launches"] = {fn.__name__: fn.launches + sum(
+    out["launches"] = {fn.__name__: mrf_launches(fn) + sum(
         rl[i] for rl in rank_launches) for i, fn in enumerate(counters)}
     if cuda and min(out["launches"].values()) == 0:
         raise AssertionError(f"a kernel never ran in phase 10: "
@@ -2889,8 +2903,7 @@ def image_phase(counters, root: str, device: str = "cuda",
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     out = {}
-    for fn in counters:
-        fn.launches = 0
+    zero_launches(counters)
 
     def sync():
         if cuda:
@@ -3291,7 +3304,7 @@ def image_phase(counters, root: str, device: str = "cuda",
         "of 5)")
 
     shutil.rmtree(work, ignore_errors=True)
-    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    out["launches"] = {fn.__name__: mrf_launches(fn) for fn in counters}
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"# phase 11: {out['wall_s']:.1f} s; MRF launches "
         f"{out['launches']} (none on this path)")
@@ -3417,8 +3430,7 @@ def quality_phase(counters, root: str, device: str = "cuda",
     env = {"PATH": bin_dir + os.pathsep + os.environ["PATH"],
            "DEVICE": device, "TMPDIR": work}
     out, walls = {"card": smi}, {}
-    for fn in counters:
-        fn.launches = 0
+    zero_launches(counters)
 
     # 1. the float32 policy, read inside a CLI subprocess
     t0 = time.perf_counter()
@@ -3648,7 +3660,7 @@ def quality_phase(counters, root: str, device: str = "cuda",
                     f"{r['req_per_s']} req/s {r['batch_hist']}"
                     for c, r in sweep.items()))
 
-    out["launches"] = {fn.__name__: fn.launches for fn in counters}
+    out["launches"] = {fn.__name__: mrf_launches(fn) for fn in counters}
     walls["phase_s"] = time.perf_counter() - t_phase
     out["walls_s"] = walls
     log(f"  phase 12: {walls['phase_s']:.1f} s; in-process MRF launches "
@@ -3829,8 +3841,7 @@ def main(argv=None) -> int:
                                 list(cfg.data.text_cleaners))
     hop, sr = cfg.stft.hop_length, cfg.stft.sampling_rate
     counters = (mrf.fused_mrf_stage, mrf.fused_mrf_stage_streamed)
-    for fn in counters:
-        fn.launches = 0
+    zero_launches(counters)
     log("# phase 3: synthesis (LJSpeech config, random weights, bf16)")
 
     def counted_call(synth, seqs, **kw):
@@ -3883,16 +3894,16 @@ def main(argv=None) -> int:
     # users, against the plain float32 vocoder on the same mel
     synth32 = Synthesizer(cfg, model, vocoder, T=1,
                           compute_dtype=torch.float32)
-    before = [fn.launches for fn in counters]
+    before = [mrf_launches(fn) for fn in counters]
     mel32, _, wav32 = counted_call(synth32, [tokens], x_T=x_T)
-    launches_f32 = {fn.__name__: fn.launches - b
+    launches_f32 = {fn.__name__: mrf_launches(fn) - b
                     for fn, b in zip(counters, before)}
     with torch.no_grad():
         wav32_plain = vocoder(torch.from_numpy(mel32).to(dev)).cpu()
     err_voc32 = check("B=1 f32 vocoder kernels vs plain f32 vocoder",
                       torch.from_numpy(wav32), wav32_plain, F32_TOL)
     log(f"  B=1 T=1 float32: max|err| wav vs plain vocoder {err_voc32:.3e}")
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = {fn.__name__: mrf_launches(fn) for fn in counters}
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{launches}")

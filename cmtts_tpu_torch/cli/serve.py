@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from cmtts_tpu_torch.cli.synthesize import token_budget, tokenizer
+from cmtts_tpu_torch.core.trace import counters
 
 
 def wav_bytes(wav: np.ndarray, sr: int) -> bytes:
@@ -329,11 +330,7 @@ class TTSService:
         return n
 
     def status(self) -> dict:
-        from cmtts_tpu_torch.ops.mrf import (
-            fused_mrf_stage,
-            fused_mrf_stage_streamed,
-        )
-
+        launches = counters()
         dev = torch.device(self.synth.device)
         return {
             "status": "ok",
@@ -342,8 +339,8 @@ class TTSService:
             # the (mel bucket, vocode) shapes run: the keys of the JAX
             # pipeline's compiled graphs
             "compiled_graphs": len(self.synth.shapes_run),
-            "mrf_launches": {fn.__name__: fn.launches for fn in
-                             (fused_mrf_stage, fused_mrf_stage_streamed)},
+            "mrf_launches": {name: launches.get("mrf." + name, 0) for name in
+                             ("fused_mrf_stage", "fused_mrf_stage_streamed")},
             "requests_served": self.requests,
             "T": self.synth.T,
             "sampler": self.synth.sampler,

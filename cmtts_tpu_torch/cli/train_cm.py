@@ -13,9 +13,15 @@ It reads the preprocessed feature corpus named by the config, draws
 length-sorted bucketed batches, and takes RAdam steps with the configured
 timestep sampler (the loss-second-moment sampler learns from each step's
 per-sample losses), three EMAs and the target EMA.  Every ``log_step`` it
-logs the step's metrics and a one-step synthesis from the target params
-(``progress.csv`` under ``<log_path>_cm[_tag]/train``); every ``save_step``
-and at the end it saves a checkpoint under ``<ckpt_path>[_tag]``.
+logs the step's metrics, a one-step synthesis from the target params,
+``feed_empty_frac`` and ``feed_full_frac`` (``progress.csv`` under
+``<log_path>_cm[_tag]/train``): of the window's batch pulls, the share
+that found the prefetch queue empty, and the number of batches whose put
+found it full, per pull, from the ``feed.pulls``, ``feed.empty_pulls``
+and ``feed.full_puts`` counters of :mod:`cmtts_tpu_torch.core.trace`
+(empty near 1: the steps wait on the feed; full near 1: the feed waits on
+the steps); every ``save_step`` and at the end it saves a checkpoint
+under ``<ckpt_path>[_tag]``.
 ``--restore_step -1`` resumes from the latest complete checkpoint (the
 data feed and the draws restart from the seed); a resume refuses a run
 recorded with other graph-affecting flags.  With ``DIFFUSION_TRAINING_TEST``
@@ -36,9 +42,12 @@ its shards, so that a checkpoint resumes at any tp); the others wait.
 ``--steps_per_call K`` takes K steps on one set of sampler probabilities
 and hands the LSM history the K steps at once (K is 1 under a
 progressive ``scale_mode``).  ``--profile_dir`` traces steps 2K+1 .. 7K
-with ``torch.profiler`` into ``trace_rank<r>.json``.  With ``tensorboard``
-in ``CMTTS_LOG_FORMAT`` each ``synth_step`` also logs the mel, f0, CWT and
-energy figures and a Griffin-Lim rendering of the one-step mel.
+with ``torch.profiler`` into ``trace_rank<r>.json``, every thread with the
+port's ``cmtts.*`` spans (the step's draw, forward, cast, backward and
+update; the feed's ``feed.collate`` on its producer thread).  With
+``tensorboard`` in ``CMTTS_LOG_FORMAT`` each ``synth_step`` also logs the
+mel, f0, CWT and energy figures and a Griffin-Lim rendering of the
+one-step mel.
 """
 
 from __future__ import annotations
@@ -145,6 +154,7 @@ def main(argv=None) -> dict:
     from cmtts_tpu_torch.cm.karras import schedule_from_config
     from cmtts_tpu_torch.core.config import load_configs
     from cmtts_tpu_torch.core.device import cli_device
+    from cmtts_tpu_torch.core.trace import counters
     from cmtts_tpu_torch.data.dataset import (
         FeatureDataset,
         batch_iterator,
@@ -340,7 +350,14 @@ def main(argv=None) -> dict:
     result = {"start_step": step0, "restored": restored,
               "restored_sampler": restored_sampler, "losses": []}
     step = step0 + 1      # the first step of the coming call
+
+    def feed_pulls():
+        c = counters()
+        return tuple(c.get(k, 0) for k in ("feed.pulls", "feed.empty_pulls",
+                                           "feed.full_puts"))
+
     t_last, steps_since_log = time.perf_counter(), 0
+    pulls_last = feed_pulls()
     prof, gl = None, None
 
     def stop_profiler(why: str):
@@ -364,12 +381,17 @@ def main(argv=None) -> dict:
                 sampler = make_sampler(num_scales)
             if args.profile_dir:
                 if prof is None and step >= step0 + 1 + 2 * K:
-                    from torch.profiler import ProfilerActivity, profile
+                    from torch.profiler import (
+                        ProfilerActivity,
+                        _ExperimentalConfig,
+                        profile,
+                    )
 
                     os.makedirs(args.profile_dir, exist_ok=True)
                     prof = profile(activities=[ProfilerActivity.CPU] + (
                         [ProfilerActivity.CUDA] if device.type == "cuda"
-                        else []))
+                        else []), experimental_config=_ExperimentalConfig(
+                            profile_all_threads=True))
                     prof.start()
                 elif prof is not None and step >= step0 + 1 + 7 * K:
                     stop_profiler(f"steps {step0 + 1 + 2 * K}-{step - 1}")
@@ -412,12 +434,18 @@ def main(argv=None) -> dict:
                     logger.logkv("step", last_step)
                     logger.logkv("mel_loss_onestep", float(mel_loss))
                     logger.logkv("steps_per_sec", steps_since_log / dt)
+                    pulls, empty, full = feed_pulls()
+                    n = max(pulls - pulls_last[0], 1)
+                    logger.logkv("feed_empty_frac",
+                                 (empty - pulls_last[1]) / n)
+                    logger.logkv("feed_full_frac", (full - pulls_last[2]) / n)
                     for k, v in steps[-1][1].items():
                         if v.ndim == 0:
                             logger.logkv(k, np.mean([float(m[k])
                                                      for _, m in steps]))
                     logger.dumpkvs()
                 t_last, steps_since_log = time.perf_counter(), 0
+                pulls_last = feed_pulls()
 
             done = last_step >= total_step
             if last_step // save_step > (step - 1) // save_step or done:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import json
 import os
 import threading
-from queue import Full, Queue
+from queue import Empty, Full, Queue
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -32,6 +32,7 @@ from cmtts_tpu_torch.core.masks import (
     pad_to,
     pick_bucket,
 )
+from cmtts_tpu_torch.core.trace import count, span
 from cmtts_tpu_torch.audio.pitch import norm_interp_f0
 from cmtts_tpu_torch.text import text_to_sequence
 
@@ -311,13 +312,24 @@ def prefetch_iterator(make_iterator, depth: int = 2):
     overlaps host-side file IO/collation with device steps (the
     reference's DataLoader(num_workers) role).  An exception in the
     producer is raised to the consumer; closing the consumer stops the
-    producer."""
+    producer.
+
+    Each ``next`` of the inner iterator is a ``feed.collate`` span, and
+    :mod:`cmtts_tpu_torch.core.trace` counts ``feed.pulls`` (items the
+    consumer took), ``feed.empty_pulls`` (of which the queue was empty)
+    and ``feed.full_puts`` (items whose put found the queue full)."""
     q: Queue = Queue(maxsize=depth)
     end = object()
     stop = threading.Event()
     errors: list[BaseException] = []
 
     def put(item) -> bool:
+        try:
+            q.put_nowait(item)
+            return True
+        except Full:
+            if item is not end:
+                count("feed.full_puts")
         while not stop.is_set():
             try:
                 q.put(item, timeout=0.1)
@@ -328,7 +340,12 @@ def prefetch_iterator(make_iterator, depth: int = 2):
 
     def producer():
         try:
-            for item in make_iterator():
+            it = iter(make_iterator())
+            while True:
+                with span("feed.collate"):
+                    item = next(it, end)
+                if item is end:
+                    break
                 if not put(item):
                     return
         except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
@@ -339,11 +356,17 @@ def prefetch_iterator(make_iterator, depth: int = 2):
     t.start()
     try:
         while True:
-            item = q.get()
+            try:
+                item, empty = q.get_nowait(), False
+            except Empty:
+                item, empty = q.get(), True
             if item is end:
                 if errors:
                     raise errors[0]
                 return
+            count("feed.pulls")
+            if empty:
+                count("feed.empty_pulls")
             yield item
     finally:
         stop.set()

@@ -32,6 +32,7 @@ from torch import nn
 from cmtts_tpu_torch.audio.stft import mel_filterbank, stft_magnitudes
 from cmtts_tpu_torch.convert import load_flax_params
 from cmtts_tpu_torch.core.device import resolve_device
+from cmtts_tpu_torch.core.trace import span
 from cmtts_tpu_torch.models.hifigan import unflatten_npz
 from cmtts_tpu_torch.models.init import lecun_normal_
 
@@ -344,9 +345,11 @@ class DeepSpeakerInference:
 
     @torch.no_grad()
     def predict_embedding(self, wav: np.ndarray, sr: int = 22050) -> np.ndarray:
-        frames = ds_sample_frames(ds_fbank_frames(wav, sr))
-        x = torch.as_tensor(frames[None, :, :, None], device=self.device)
-        return self.model(x)[0].cpu().numpy()
+        with span("embed.fbank"):
+            frames = ds_sample_frames(ds_fbank_frames(wav, sr))
+        with span("embed.rescnn"):
+            x = torch.as_tensor(frames[None, :, :, None], device=self.device)
+            return self.model(x)[0].cpu().numpy()
 
 
 # --------------------------------------------------------------------------

@@ -47,6 +47,8 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 import torch.nn.functional as F
 
+from cmtts_tpu_torch.core.trace import count
+
 LRELU_SLOPE = 0.1
 POST_SLOPE = 0.01
 SMEM_LIMIT = 232448          # dynamic shared memory a block may use (H100)
@@ -496,8 +498,8 @@ def fused_mrf_stage(x, packed, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
                     compute_dtype=torch.float32, post=None):
     """One MRF stage through the CUDA kernels: the bf16 or the float32
     route's launches, a conv each (counterpart of
-    ``mrf_pallas.fused_mrf_stage``).  ``launches`` counts calls that
-    launched.
+    ``mrf_pallas.fused_mrf_stage``).  A call that launches counts
+    ``mrf.fused_mrf_stage`` (:func:`cmtts_tpu_torch.core.trace.counters`).
 
     x: (B, C, L) float32.  packed: ``(w, b, w_tiles)`` from
     :func:`pack_mrf_params` in ``compute_dtype``.  post: optional ``(w, b)``
@@ -511,11 +513,8 @@ def fused_mrf_stage(x, packed, kernel_sizes=(3, 7, 11), dilations=(1, 3, 5),
     if x.device.type != "cuda":
         raise ValueError(f"no MRF kernel for device {x.device}")
     out = _launch(x, packed, kernel_sizes, dilations, compute_dtype, post)
-    fused_mrf_stage.launches += 1
+    count("mrf.fused_mrf_stage")
     return out
-
-
-fused_mrf_stage.launches = 0
 
 
 def fused_mrf_stage_streamed(x, packed, kernel_sizes=(3, 7, 11),
@@ -527,15 +526,13 @@ def fused_mrf_stage_streamed(x, packed, kernel_sizes=(3, 7, 11),
     stream each conv's weights through a shared-memory ring: the bf16
     convs a 64-deep K tile at a time by bulk async copies, the float32
     convs a K-chunk at a time by ``cp.async``.  ``packed`` as for
-    :func:`fused_mrf_stage`."""
+    :func:`fused_mrf_stage`; a call that launches counts
+    ``mrf.fused_mrf_stage_streamed``."""
     if x.device.type == "cpu":
         return mrf_stage_plain(x, packed[0], packed[1], kernel_sizes,
                                dilations, compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no MRF kernel for device {x.device}")
     out = _launch(x, packed, kernel_sizes, dilations, compute_dtype, None)
-    fused_mrf_stage_streamed.launches += 1
+    count("mrf.fused_mrf_stage_streamed")
     return out
-
-
-fused_mrf_stage_streamed.launches = 0

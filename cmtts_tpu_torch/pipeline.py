@@ -40,6 +40,7 @@ from cmtts_tpu_torch.core.masks import (
     pad_to,
     pick_bucket,
 )
+from cmtts_tpu_torch.core.trace import span
 from cmtts_tpu_torch.models.cmtts import CMTTS
 from cmtts_tpu_torch.models.hifigan import (
     HiFiGANGenerator,
@@ -135,12 +136,13 @@ class Synthesizer:
         wav (B, t_mel * hop) or None), all tensors on the device."""
         sched = self.sched
         cdt = self.compute_dtype
-        cond_out = self.model.condition(texts, src_lens, t_mel,
-                                        speakers=speakers,
-                                        spker_embeds=spker_embeds,
-                                        p_control=p_control,
-                                        e_control=e_control,
-                                        d_control=d_control)
+        with span("synth.condition"):
+            cond_out = self.model.condition(texts, src_lens, t_mel,
+                                            speakers=speakers,
+                                            spker_embeds=spker_embeds,
+                                            p_control=p_control,
+                                            e_control=e_control,
+                                            d_control=d_control)
         cond, spk = cond_out["cond"], cond_out["speaker_emb"]
 
         def denoise(x_t, sigma):
@@ -150,17 +152,21 @@ class Synthesizer:
             return c_out[:, None, None] * out + c_skip[:, None, None] * x_t
 
         shape = (texts.shape[0], t_mel, self.cfg.stft.n_mel_channels)
-        mel = sample_mel(
-            denoise, shape, sched, self.sampler, T=self.T,
-            steps=self.sample_steps,
-            ts=default_ts(self.T) if self.sampler == "multistep" else None,
-            x_T=x_T, noise=noise, generator=generator, device=self.device)
+        with span("synth.denoise"):
+            mel = sample_mel(
+                denoise, shape, sched, self.sampler, T=self.T,
+                steps=self.sample_steps,
+                ts=default_ts(self.T) if self.sampler == "multistep" else None,
+                x_T=x_T, noise=noise, generator=generator, device=self.device)
         wav = None
-        if isinstance(self.vocoder, MelGANGenerator):
-            wav = self.vocoder(mel / math.log(10.0))   # ln-mel -> log10-mel
-        elif self.vocoder is not None:
-            wav = hifigan_apply_fused(self.vocoder, mel, self.vocoder_packed,
-                                      cdt)
+        if self.vocoder is not None:
+            with span("synth.vocode"):
+                if isinstance(self.vocoder, MelGANGenerator):
+                    # ln-mel -> log10-mel
+                    wav = self.vocoder(mel / math.log(10.0))
+                else:
+                    wav = hifigan_apply_fused(self.vocoder, mel,
+                                              self.vocoder_packed, cdt)
         return mel, cond_out["mel_lens"], wav
 
     def __call__(self, token_seqs: Sequence[np.ndarray],
@@ -180,61 +186,65 @@ class Synthesizer:
         seeded with ``seed`` unless ``x_T`` (scaled by sigma_max) and the
         sampler's later draws, ``noise``, are given.
         """
-        B = len(token_seqs)
-        max_txt = max(len(t) for t in token_seqs)
-        t_txt = pick_bucket(max_txt, self.text_buckets)
-        texts = np.stack([pad_to(np.asarray(t, np.int64), t_txt)
-                          for t in token_seqs])
-        src_lens = np.asarray([len(t) for t in token_seqs], np.int64)
-        if mel_bucket is None:
-            est = min(int(max_txt * 10), self.cfg.model.max_seq_len)
-            mel_bucket = pick_bucket(est, self.mel_buckets)
-        mc = self.cfg.model
-        if speakers is None:
-            speakers = np.zeros(B, np.int64)
-        if spker_embeds is None:
-            if mc.multi_speaker and mc.speaker_embedder != "none":
-                raise ValueError(
-                    "spker_embeds required for external-embedder models")
-            spker_embeds = np.zeros((B, mc.external_speaker_dim), np.float32)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
-        if x_T is not None:
-            x_T = x_T.to(self.device, torch.float32)
-        rows = np.arange(B)
-        dp = group_size(self.dp_group)
-        if dp > 1:
-            # this rank's rows of the batch padded to a multiple of dp; a
-            # padded row repeats the last one
-            n = -(-B // dp)
-            r = group_rank(self.dp_group)
-            rows = np.minimum(np.arange(r * n, (r + 1) * n), B - 1)
-            shape = (B, mel_bucket, self.cfg.stft.n_mel_channels)
-            if x_T is None:
-                x_T = torch.randn(shape, generator=generator,
-                                  device=self.device) * self.sched.sigma_max
-            x_T = x_T[rows]
-            noise = (_row_draws(shape, rows, generator, self.device)
-                     if noise is None else [z[rows] for z in noise])
+        with span("synth.prepare"):
+            B = len(token_seqs)
+            max_txt = max(len(t) for t in token_seqs)
+            t_txt = pick_bucket(max_txt, self.text_buckets)
+            texts = np.stack([pad_to(np.asarray(t, np.int64), t_txt)
+                              for t in token_seqs])
+            src_lens = np.asarray([len(t) for t in token_seqs], np.int64)
+            if mel_bucket is None:
+                est = min(int(max_txt * 10), self.cfg.model.max_seq_len)
+                mel_bucket = pick_bucket(est, self.mel_buckets)
+            mc = self.cfg.model
+            if speakers is None:
+                speakers = np.zeros(B, np.int64)
+            if spker_embeds is None:
+                if mc.multi_speaker and mc.speaker_embedder != "none":
+                    raise ValueError(
+                        "spker_embeds required for external-embedder models")
+                spker_embeds = np.zeros((B, mc.external_speaker_dim),
+                                        np.float32)
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+            if x_T is not None:
+                x_T = x_T.to(self.device, torch.float32)
+            rows = np.arange(B)
+            dp = group_size(self.dp_group)
+            if dp > 1:
+                # this rank's rows of the batch padded to a multiple of dp;
+                # a padded row repeats the last one
+                n = -(-B // dp)
+                r = group_rank(self.dp_group)
+                rows = np.minimum(np.arange(r * n, (r + 1) * n), B - 1)
+                shape = (B, mel_bucket, self.cfg.stft.n_mel_channels)
+                if x_T is None:
+                    x_T = self.sched.sigma_max * torch.randn(
+                        shape, generator=generator, device=self.device)
+                x_T = x_T[rows]
+                noise = (_row_draws(shape, rows, generator, self.device)
+                         if noise is None else [z[rows] for z in noise])
+            texts = torch.from_numpy(texts[rows]).to(self.device)
+            src_lens = torch.from_numpy(src_lens[rows]).to(self.device)
+            speakers = torch.as_tensor(np.asarray(speakers, np.int64)[rows],
+                                       device=self.device)
+            spker_embeds = torch.as_tensor(
+                np.asarray(spker_embeds, np.float32)[rows], device=self.device)
         mel, mel_lens, wav = self.synthesize(
-            torch.from_numpy(texts[rows]).to(self.device),
-            torch.from_numpy(src_lens[rows]).to(self.device), mel_bucket,
-            speakers=torch.as_tensor(np.asarray(speakers, np.int64)[rows],
-                                     device=self.device),
-            spker_embeds=torch.as_tensor(
-                np.asarray(spker_embeds, np.float32)[rows],
-                device=self.device),
-            d_control=d_control, p_control=p_control, e_control=e_control,
-            x_T=x_T, noise=noise, generator=generator)
+            texts, src_lens, mel_bucket, speakers=speakers,
+            spker_embeds=spker_embeds, d_control=d_control,
+            p_control=p_control, e_control=e_control, x_T=x_T, noise=noise,
+            generator=generator)
         if dp > 1:
             mel, mel_lens = (all_gather_cat(mel, self.dp_group)[:B],
                              all_gather_cat(mel_lens, self.dp_group)[:B])
             if wav is not None:
                 wav = all_gather_cat(wav, self.dp_group)[:B]
         self.shapes_run.add((mel_bucket, self.vocoder is not None))
-        mel_lens = mel_lens.cpu().numpy()
-        warn_if_bucket_saturated(mel_lens, mel_bucket)
-        return (mel.cpu().numpy(), mel_lens,
-                None if wav is None else wav.cpu().numpy())
+        with span("synth.fetch"):
+            mel_lens = mel_lens.cpu().numpy()
+            warn_if_bucket_saturated(mel_lens, mel_bucket)
+            return (mel.cpu().numpy(), mel_lens,
+                    None if wav is None else wav.cpu().numpy())
 
     def trim_wavs(self, wav: np.ndarray, mel_lens: np.ndarray):
         """Per-sample waveform trim to mel_len * hop."""

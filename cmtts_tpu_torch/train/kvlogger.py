@@ -13,9 +13,7 @@ from __future__ import annotations
 import datetime
 import json
 import os
-import time
 from collections import defaultdict
-from contextlib import contextmanager
 from typing import Any
 
 
@@ -33,7 +31,6 @@ class KVLogger:
         self._csv_keys: list[str] = []
         self._jsonl_file = None
         self._tb = None
-        self._profile_starts: dict[str, float] = {}
         if log_dir and "csv" in self.formats:
             self._csv_path = os.path.join(log_dir, "progress.csv")
         if log_dir and "jsonl" in self.formats:
@@ -60,16 +57,6 @@ class KVLogger:
         else:
             self._kv[key] = float(val)
         self._counts[key] = cnt + 1
-
-    @contextmanager
-    def profile(self, scope: str):
-        """Wall-time scope accumulated as wait_<scope>
-        (logger.py:292-316)."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.logkv_mean(f"wait_{scope}", time.perf_counter() - t0)
 
     # -- dumping ------------------------------------------------------------
     def dumpkvs(self) -> dict[str, float]:

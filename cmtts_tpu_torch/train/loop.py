@@ -35,6 +35,7 @@ from cmtts_tpu_torch.cm.losses import (
     progdist_loss,
 )
 from cmtts_tpu_torch.core.config import Config
+from cmtts_tpu_torch.core.trace import span
 from cmtts_tpu_torch.models.cmtts import CMTTS
 from cmtts_tpu_torch.parallel.distributed import (
     all_reduce_,
@@ -89,10 +90,11 @@ def make_apply_fn(model: CMTTS, compute_dtype: torch.dtype | None = None,
         if compute_dtype is None:
             return params
         out = {}
-        for k, v in params.items():
-            low = v.to(compute_dtype)
-            out[k] = (low if k.startswith("denoiser.") or k in embeds
-                      else low.float())
+        with span("ct.cast"):
+            for k, v in params.items():
+                low = v.to(compute_dtype)
+                out[k] = (low if k.startswith("denoiser.") or k in embeds
+                          else low.float())
         return out
 
     def apply(params, x_scaled, rescaled_t, batch, generator, deterministic):
@@ -249,43 +251,44 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
         if generator is None and (indices is None or noise is None):
             raise ValueError("the step draws its indices and noise from "
                              "a generator; pass one, or both draws")
-        probs = torch.as_tensor(probs, dtype=torch.float32, device=dev)
-        if training_mode == "edm":
-            if indices is None:
-                z = torch.randn(B, generator=generator, device=dev)
-                indices = torch.exp(edm_p_mean + edm_p_std * z)
-            indices = torch.clamp(
-                rank_share(indices, dp_group).to(dev, torch.float32),
-                sched.sigma_min, sched.sigma_max)
-            weights = torch.ones(indices.shape[0], device=dev)
-        else:
-            if indices is None:
-                indices = torch.multinomial(probs, B, replacement=True,
-                                            generator=generator)
-            indices = rank_share(indices, dp_group).to(dev, torch.long)
-            # unbiased importance weights 1 / (K p_i)
-            weights = 1.0 / (probs.shape[0] * probs[indices])
-        sv = batch.get("sample_valid")
-        if sv is not None:
-            # padded duplicate rows: zero their cm contribution and
-            # renormalise to the real-sample count over the whole batch,
-            # so that the gradient equals the unpadded batch's with or
-            # without microbatches
-            weights = weights * sv * (B / torch.clamp(
-                global_count(sv.sum(), dp_group), min=1.0))
-        if noise is None:
-            noise = torch.randn((B,) + tuple(x_start.shape[1:]),
-                                generator=generator, device=dev)
-        noise = rank_share(noise, dp_group).to(dev, torch.float32)
-        if dp > 1 and generator is not None:
-            # each rank's dropout masks from a generator of its own, seeded
-            # by the shared generator's state (which is left as the
-            # one-device step leaves it) and the rank
-            seed = zlib.crc32(generator.get_state().numpy().tobytes())
-            generator = torch.Generator(dev).manual_seed(
-                (seed << 16) + dp_rank)
-        data = {"x_start": x_start, "noise": noise, "indices": indices,
-                "weights": weights, "batch": batch}
+        with span("ct.draw"):
+            probs = torch.as_tensor(probs, dtype=torch.float32, device=dev)
+            if training_mode == "edm":
+                if indices is None:
+                    z = torch.randn(B, generator=generator, device=dev)
+                    indices = torch.exp(edm_p_mean + edm_p_std * z)
+                indices = torch.clamp(
+                    rank_share(indices, dp_group).to(dev, torch.float32),
+                    sched.sigma_min, sched.sigma_max)
+                weights = torch.ones(indices.shape[0], device=dev)
+            else:
+                if indices is None:
+                    indices = torch.multinomial(probs, B, replacement=True,
+                                                generator=generator)
+                indices = rank_share(indices, dp_group).to(dev, torch.long)
+                # unbiased importance weights 1 / (K p_i)
+                weights = 1.0 / (probs.shape[0] * probs[indices])
+            sv = batch.get("sample_valid")
+            if sv is not None:
+                # padded duplicate rows: zero their cm contribution and
+                # renormalise to the real-sample count over the whole
+                # batch, so that the gradient equals the unpadded batch's
+                # with or without microbatches
+                weights = weights * sv * (B / torch.clamp(
+                    global_count(sv.sum(), dp_group), min=1.0))
+            if noise is None:
+                noise = torch.randn((B,) + tuple(x_start.shape[1:]),
+                                    generator=generator, device=dev)
+            noise = rank_share(noise, dp_group).to(dev, torch.float32)
+            if dp > 1 and generator is not None:
+                # each rank's dropout masks from a generator of its own,
+                # seeded by the shared generator's state (which is left as
+                # the one-device step leaves it) and the rank
+                seed = zlib.crc32(generator.get_state().numpy().tobytes())
+                generator = torch.Generator(dev).manual_seed(
+                    (seed << 16) + dp_rank)
+            data = {"x_start": x_start, "noise": noise, "indices": indices,
+                    "weights": weights, "batch": batch}
 
         if 0 < microbatch < B:
             if B % microbatch != 0:
@@ -306,62 +309,67 @@ def make_train_step(model: CMTTS, cfg: Config, opt: RAdam, num_scales: int,
         grads, losses, totals, auxes = None, [], [], []
         for i in range(k):
             mb = data if k == 1 else _slice(data, i, k)
-            loss, total, aux = micro_loss(params, state.target_params, mb,
-                                          generator)
-            g = torch.autograd.grad(loss, [params[n] for n in names],
-                                    allow_unused=True)
-            g = [torch.zeros_like(params[n]) if gi is None else gi
-                 for n, gi in zip(names, g)]
-            grads = g if grads is None else torch._foreach_add(grads, g)
+            with span("ct.forward"):
+                loss, total, aux = micro_loss(params, state.target_params,
+                                              mb, generator)
+            with span("ct.backward"):
+                g = torch.autograd.grad(loss, [params[n] for n in names],
+                                        allow_unused=True)
+                g = [torch.zeros_like(params[n]) if gi is None else gi
+                     for n, gi in zip(names, g)]
+                grads = g if grads is None else torch._foreach_add(grads, g)
             losses.append(loss.detach())
             totals.append(total.detach())
             auxes.append({key: v.detach() for key, v in aux.items()})
-        if k == 1:
-            loss, total, aux = losses[0], totals[0], auxes[0]
-        else:
-            torch._foreach_div_(grads, float(k))
-            loss = torch.stack(losses).mean()
-            total = _interleave(totals)
-            aux = {key: (_interleave([a[key] for a in auxes])
-                         if auxes[0][key].ndim else
-                         torch.stack([a[key] for a in auxes]).mean())
-                   for key in auxes[0]}
-        grads = all_reduce_grads(dict(zip(names, grads)), dp_group)
-        norms = torch.stack(torch._foreach_norm(list(grads.values())))
-        if tp_group is not None:
-            # a split tensor's norm over its shards
-            split = torch.tensor([tp_split_dim(n) is not None
-                                  for n in grads], device=norms.device)
-            norms = torch.cat([norms[~split], all_reduce_(
-                norms[split] ** 2, tp_group).sqrt()])
+        with span("ct.update"):
+            if k == 1:
+                loss, total, aux = losses[0], totals[0], auxes[0]
+            else:
+                torch._foreach_div_(grads, float(k))
+                loss = torch.stack(losses).mean()
+                total = _interleave(totals)
+                aux = {key: (_interleave([a[key] for a in auxes])
+                             if auxes[0][key].ndim else
+                             torch.stack([a[key] for a in auxes]).mean())
+                       for key in auxes[0]}
+            grads = all_reduce_grads(dict(zip(names, grads)), dp_group)
+            norms = torch.stack(torch._foreach_norm(list(grads.values())))
+            if tp_group is not None:
+                # a split tensor's norm over its shards
+                split = torch.tensor([tp_split_dim(n) is not None
+                                      for n in grads], device=norms.device)
+                norms = torch.cat([norms[~split], all_reduce_(
+                    norms[split] ** 2, tp_group).sqrt()])
 
-        new_params, opt_state = opt.update(grads, state.opt_state,
-                                           state.params)
-        new_state = CMTrainState(
-            step=state.step + 1, params=new_params, opt_state=opt_state,
-            ema_params=tuple(tree_ema(e, new_params, r)
-                             for e, r in zip(state.ema_params, ema_rates)),
-            target_params=tree_ema(state.target_params, new_params,
-                                   target_ema))
-        metrics = {
-            "loss": psum(loss),
-            "cm_loss": psum((aux["cm_loss"] * weights).sum()) / B,
-            "tts_loss": aux["tts_loss"],
-            "grad_norm": torch.linalg.vector_norm(norms),
-            "indices": indices,
-            "loss_per_sample": total,
-        }
-        if training_mode != "edm" and num_scales - 1 <= 8:
-            # per-noise-level cm loss, as sum and count pairs so that the
-            # host can form exact means over any logging window
-            for ki in range(num_scales - 1):
-                msk = (indices == ki).float()
-                metrics[f"cm_i{ki}_sum"] = psum((aux["cm_loss"] * msk).sum())
-                metrics[f"cm_i{ki}_cnt"] = psum(msk.sum())
-        for key in ("pdur", "sdur", "C", "uv", "f0_mean", "f0_std", "energy",
-                    "f0"):
-            if key in aux:
-                metrics[key] = aux[key]
+            new_params, opt_state = opt.update(grads, state.opt_state,
+                                               state.params)
+            new_state = CMTrainState(
+                step=state.step + 1, params=new_params, opt_state=opt_state,
+                ema_params=tuple(
+                    tree_ema(e, new_params, r)
+                    for e, r in zip(state.ema_params, ema_rates)),
+                target_params=tree_ema(state.target_params, new_params,
+                                       target_ema))
+            metrics = {
+                "loss": psum(loss),
+                "cm_loss": psum((aux["cm_loss"] * weights).sum()) / B,
+                "tts_loss": aux["tts_loss"],
+                "grad_norm": torch.linalg.vector_norm(norms),
+                "indices": indices,
+                "loss_per_sample": total,
+            }
+            if training_mode != "edm" and num_scales - 1 <= 8:
+                # per-noise-level cm loss, as sum and count pairs so that
+                # the host can form exact means over any logging window
+                for ki in range(num_scales - 1):
+                    msk = (indices == ki).float()
+                    metrics[f"cm_i{ki}_sum"] = psum(
+                        (aux["cm_loss"] * msk).sum())
+                    metrics[f"cm_i{ki}_cnt"] = psum(msk.sum())
+            for key in ("pdur", "sdur", "C", "uv", "f0_mean", "f0_std",
+                        "energy", "f0"):
+                if key in aux:
+                    metrics[key] = aux[key]
         return new_state, metrics
 
     return step_fn

@@ -1,0 +1,15 @@
+"""Host milliseconds a training step inside the program's ``ct.backward``
+span (``train/loop.py::make_train_step``): ``autograd.grad`` through the
+forward, the zero fill of unused gradients and the microbatch sum.
+
+Traced host time: it follows the number of ops launched more than Python
+work (see :mod:`perfbench.program_spans`)."""
+
+from perfbench.program_spans import span_ms_per
+
+UNIT, BETTER, SOURCE, LAYER, MOVES = ("ms", "lower", "program_span",
+                                      "training step", "train_samples_per_s")
+
+
+def read(run):
+    return span_ms_per(run, "ct.backward", "steps")

@@ -10,6 +10,7 @@ and tp=2, whose checkpoint resumes at tp=1.  Beside them, without ranks:
 ``--steps_per_call 2`` against single steps, ``--profile_dir``, the
 TensorBoard figures and the messages when their packages are absent."""
 
+import json
 import multiprocessing
 import os
 import socket
@@ -372,8 +373,8 @@ def test_steps_per_call_and_profile(tmp_path):
     draws (a log every 2 steps, whose one-step synthesis draws from the
     generator, comes between the same steps in both; the LSM history is
     still warming up, so its probabilities stay uniform either way) and
-    saves at the same steps; ``--profile_dir`` traces steps 5-6 and writes
-    the trace at the end."""
+    saves at the same steps; ``--profile_dir`` traces steps 5-6 with the
+    port's spans and writes the trace at the end."""
     from cmtts_tpu_torch.train.checkpoint import list_checkpoint_steps
 
     roots = [cli_root(tmp_path, n, 2, log_step=2) for n in ("k1", "k2")]
@@ -391,7 +392,10 @@ def test_steps_per_call_and_profile(tmp_path):
     for root in roots:
         ckpt = os.path.join(os.path.dirname(root), "ckpt_path")
         assert list_checkpoint_steps(ckpt) == [2, 4, 6]
-    assert (prof / "trace_rank0.json").stat().st_size > 0
+    with open(prof / "trace_rank0.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"cmtts.ct.draw", "cmtts.ct.forward", "cmtts.ct.backward",
+            "cmtts.ct.update"} <= names
 
 
 def test_tensorboard_figures_and_missing_packages(tmp_path, monkeypatch):

@@ -78,8 +78,11 @@ def test_cli_journey_cpu(run_root, capsys, monkeypatch):
         rows = f.read().splitlines()
     head = rows[0].split(",")
     last = dict(zip(head, rows[-1].split(",")))
-    assert {"loss", "mel_loss_onestep", "grad_norm", "cm_i0_sum"} <= set(head)
+    assert {"loss", "mel_loss_onestep", "grad_norm", "cm_i0_sum",
+            "feed_empty_frac", "feed_full_frac"} <= set(head)
     assert float(last["step"]) == 6 and np.isfinite(float(last["loss"]))
+    assert 0 <= float(last["feed_empty_frac"]) <= 1
+    assert float(last["feed_full_frac"]) >= 0
     with open(os.path.join(ckpt, "CMDenoiserTTS", "run_config.json")) as f:
         assert json.load(f)["schedule_sampler"] == "loss-second-moment"
 
