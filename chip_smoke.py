@@ -28,8 +28,14 @@ exits non-zero):
      against the float32 acoustic model on the CPU and the plain vocoder on
      the card; B=8 at 96 tokens (mel bucket 1024) at T=1 and T=2, with the
      real-time factor; B=1 in float32 (the float32 kernels' users), its
-     wav against the plain float32 vocoder.  Launch counters are zeroed
-     before this phase.
+     wav against the plain float32 vocoder; the CUDA-graph replays of B=1
+     T=1, B=8 T=1 and B=8 T=2 against the same calls made eagerly (noise
+     from a seed and given; outputs bit for bit, else within the cells'
+     ``mel_err`` limit; held outputs unchanged by later calls; the
+     counters; eager and replay ms, and the ms of a first call with new
+     controls, capturing, against the same call made eagerly); device
+     memory after 1, 10 and 64 graphs of one shape at B=1 and B=8, and
+     the 65th key eager.  Launch counters are zeroed before this phase.
   5. zero-shot and samplers at full VCTK width (random weights from a
      seed): a 3 s reference wav embedded by DeepSpeaker and by GE2E on the
      card, each against the same embedder on the CPU (float32, TF32 off);
@@ -106,7 +112,8 @@ exits non-zero):
      16 longest rows on rank 0, the 16 shortest on rank 1) against the
      one-process step on the card, the 20 x 256 denoiser at tp=2 against
      the whole one, dp=2 B=8 synthesis through the MRF kernels ([3, 1] on
-     each rank) against the one-process call; MBNet at its published
+     each rank, each rank's call eager: no graph replayed or captured)
+     against the one-process call; MBNet at its published
      widths on three 3 s wavs and both LDNet test configurations, card
      against CPU, with MBNet's ms an utterance; ``cli.all_metrics
      --metrics mb_mos ld_mos`` on reference-format MBNet and LDNet files
@@ -438,6 +445,178 @@ def timed_rtf(synth, seqs, counters, hop, sr, reps=5, **kw):
         audio = float(lens_.sum()) * hop / sr
     wall = statistics.median(times)
     return wall / audio, wall, audio
+
+
+def graph_counts() -> dict:
+    """The port's synthesis-call counters (``pipeline.GRAPH_COUNTERS``)."""
+    from cmtts_tpu_torch.core.trace import counters
+    from cmtts_tpu_torch.pipeline import GRAPH_COUNTERS
+
+    c = counters()
+    return {k: c.get(k, 0) for k in GRAPH_COUNTERS}
+
+
+def cell_limit(cell: str, name: str) -> float:
+    """A limit of the benchmark cell ``cell``'s check
+    (``perfbench/workloads/<cell>.json``)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "perfbench", "workloads",
+                           cell + ".json")) as f:
+        return float(json.load(f)["limits"][name])
+
+
+def graph_vs_eager(synth, seqs, cell: str, reps: int = 5, **kw) -> dict:
+    """``synth``'s CUDA-graph replays against the same calls made eagerly
+    by a twin on the same modules (its calls stay eager, as on the CPU or
+    with a group): noise from a seed and given as ``x_T``/``noise``;
+    ``mel``, ``mel_lens`` and ``wav`` bit for bit, else the largest
+    difference, the mel's relative error held to the benchmark cell
+    ``cell``'s ``mel_err`` limit; the device outputs of one ``synthesize``
+    call held unchanged through calls of another mel bucket and of another
+    seed; the counters; the median eager and replay call ms, and the ms of
+    a first call with new controls (a capture) against the same call
+    made eagerly.  Raises on any mismatch."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from cmtts_tpu_torch.core.masks import pad_to, pick_bucket
+
+    eager = copy.copy(synth)
+    eager._graphs = None
+    dev = synth.device
+    mel_err = cell_limit(cell, "mel_err")
+    c0 = graph_counts()
+    graph_calls = eager_calls = 0
+
+    def both(**extra):
+        nonlocal graph_calls, eager_calls
+        graph_calls, eager_calls = graph_calls + 1, eager_calls + 1
+        return synth(seqs, **kw, **extra), eager(seqs, **kw, **extra)
+
+    got, want = both(seed=11)
+    shape = got[0].shape
+    g = torch.Generator().manual_seed(12)
+    x_T = torch.randn(shape, generator=g) * synth.sched.sigma_max
+    noise = [torch.randn(shape, generator=g) for _ in range(4)]
+    out = {}
+    for mode, (got, want) in (("seeded", (got, want)),
+                              ("given", both(x_T=x_T, noise=noise))):
+        if not np.array_equal(got[1], want[1]):
+            raise AssertionError(f"{mode}: replay mel_lens {got[1]} != eager "
+                                 f"{want[1]}")
+        bit = all(np.array_equal(a, b) for a, b in zip(got, want)
+                  if b is not None)
+        rel = float(np.linalg.norm(got[0] - want[0])
+                    / max(np.linalg.norm(want[0]), 1e-30))
+        res = {"bit_equal": bit, "mel_rel_err": rel,
+               "max_mel_diff": float(np.abs(got[0] - want[0]).max())}
+        if want[2] is not None:
+            res["max_wav_diff"] = float(np.abs(got[2] - want[2]).max())
+        if not bit and rel > mel_err:
+            raise AssertionError(f"{mode}: replay vs eager mel relative "
+                                 f"error {rel:.3e} > {mel_err}: {res}")
+        out[mode] = res
+
+    # the device outputs of synthesize are the caller's own
+    B, t_mel = shape[0], shape[1]
+    t_txt = pick_bucket(max(len(t) for t in seqs), synth.text_buckets)
+    texts = torch.from_numpy(np.stack([pad_to(np.asarray(t, np.int64), t_txt)
+                                       for t in seqs])).to(dev)
+    src_lens = torch.tensor([len(t) for t in seqs], device=dev)
+    emb = kw.get("spker_embeds")
+    emb = (torch.zeros(B, synth.cfg.model.external_speaker_dim, device=dev)
+           if emb is None else torch.as_tensor(emb, device=dev))
+    spk = torch.zeros(B, dtype=torch.int64, device=dev)
+
+    def core(bucket, seed):
+        nonlocal graph_calls
+        graph_calls += 1
+        return synth.synthesize(
+            texts, src_lens, bucket, speakers=spk, spker_embeds=emb,
+            generator=torch.Generator(dev).manual_seed(seed))
+
+    held = [x for x in core(t_mel, 1) if x is not None]
+    kept = [x.clone() for x in held]
+    core(min(b for b in synth.mel_buckets if b != t_mel), 2)
+    core(t_mel, 3)
+    torch.cuda.synchronize()
+    if not all(torch.equal(h, k) for h, k in zip(held, kept)):
+        raise AssertionError("a later call changed a held synthesize output")
+
+    def wall_ms(fn, fresh=False):
+        times = []
+        for i in range(reps):
+            # fresh: a new duration control each call, a new graph key
+            extra = {"d_control": 1.0 + 0.01 * (i + 1)} if fresh else {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(seqs, seed=11, **kw, **extra)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    out["eager_ms"], out["replay_ms"] = wall_ms(eager), wall_ms(synth)
+    out["eager_fresh_ms"] = wall_ms(eager, fresh=True)
+    out["capture_call_ms"] = wall_ms(synth, fresh=True)
+    graph_calls += 2 * reps
+    eager_calls += 2 * reps
+    rose = {k: v - c0[k] for k, v in graph_counts().items()}
+    if (rose["synth.calls"] != graph_calls + eager_calls
+            or rose["synth.graph_replays"] != graph_calls
+            or rose["synth.graph_captures"] != 2 + reps):
+        raise AssertionError(f"counters rose {rose} over {graph_calls} graph "
+                             f"and {eager_calls} eager calls")
+    out["counts"] = rose
+    return out
+
+
+def graph_memory(synth, seqs, keys: int = 64, marks=(1, 10, 64),
+                 **kw) -> dict:
+    """Device memory as ``synth`` (a new Synthesizer) captures graphs of one
+    shape: ``keys`` + 1 calls, each with its own duration control and so
+    its own graph key.  GB reserved and allocated by the caching allocator
+    after one eager call of a twin (before any capture) and after each of
+    ``marks`` captures; MB reserved a graph between the last two marks,
+    beside the MB of one graph's own buffers (static inputs, noise,
+    outputs); the call past ``pipeline.MAX_GRAPHS`` keys stays eager (no
+    capture).  Raises if it captured."""
+    import copy
+
+    import torch
+
+    from cmtts_tpu_torch.pipeline import MAX_GRAPHS
+
+    def gb():
+        torch.cuda.synchronize()
+        return {"reserved_gb": torch.cuda.memory_reserved() / 1e9,
+                "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+
+    eager = copy.copy(synth)
+    eager._graphs = None
+    eager(seqs, seed=1, **kw)
+    out = {"eager": gb()}
+    for i in range(keys + 1):
+        captures = graph_counts()["synth.graph_captures"]
+        synth(seqs, seed=1, d_control=1.0 + 0.001 * i, **kw)
+        captured = graph_counts()["synth.graph_captures"] - captures
+        if captured != (i < MAX_GRAPHS):
+            raise AssertionError(f"call {i + 1} of new controls captured "
+                                 f"{captured} graphs (at most {MAX_GRAPHS} "
+                                 "are kept)")
+        if i + 1 in marks:
+            out[f"after_{i + 1}"] = gb()
+    out["graphs_kept"] = len(synth._graphs)
+    g = next(iter(synth._graphs.values()))
+    out["static_mb_per_graph"] = sum(
+        x.nbytes for x in (*g.inputs, g.x_T, *g.noise, g.mel, g.mel_lens)
+        if x is not None) / 1e6
+    lo, hi = f"after_{marks[-2]}", f"after_{marks[-1]}"
+    out["reserved_mb_per_graph"] = ((out[hi]["reserved_gb"]
+                                     - out[lo]["reserved_gb"]) * 1e3
+                                    / (marks[-1] - marks[-2]))
+    return out
 
 
 def reference_wav(seed: int, seconds: float = 3.0, sr: int = 22050):
@@ -2523,9 +2702,12 @@ def parallel_rank(rank: int, world: int, port: int, work: str, device: str,
         zero_launches((mrf.fused_mrf_stage, mrf.fused_mrf_stage_streamed))
         synth = Synthesizer(cfg, syn, voc, device=dev, dp_group=dp_mesh.data)
         t0 = time.perf_counter()
+        counts0 = graph_counts()
         out["synth"] = synth(inp["seqs"], mel_bucket=inp["mel_bucket"],
                              seed=5)
         walls["dp2_synth_s"] = time.perf_counter() - t0
+        out["graph_counts"] = {k: v - counts0[k]
+                               for k, v in graph_counts().items()}
         out["launches"] = [mrf_launches(mrf.fused_mrf_stage),
                            mrf_launches(mrf.fused_mrf_stage_streamed)]
         out["walls_s"] = walls
@@ -2691,6 +2873,12 @@ def parallel_phase(counters, root: str, device: str = "cuda",
         errs["dp2_wav"] = check("dp=2 synthesis wav vs one process",
                                 torch.from_numpy(wav2),
                                 torch.from_numpy(wav1), BF16_TOL)
+        if any(r["graph_counts"] != {"synth.calls": 1,
+                                     "synth.graph_replays": 0,
+                                     "synth.graph_captures": 0}
+               for r in (r0, r1)):
+            raise AssertionError("a dp=2 rank's call did not stay eager: "
+                                 f"{[r['graph_counts'] for r in (r0, r1)]}")
         rank_launches = [r0["launches"], r1["launches"]]
         if cuda and (one_launches != [3, 1]
                      or any(rl != [3, 1] for rl in rank_launches)):
@@ -3926,6 +4114,36 @@ def main(argv=None) -> int:
     results["B8_vocoder_ms"] = voc_ms
     log(f"  vocoder alone, B=8 mel 1024: median {voc_ms:.2f} ms "
         f"({voc_ms / walls['B8_T1']:.1%} of the B=8 T=1 wall)")
+
+    # the CUDA-graph replays against the same calls made eagerly: a fresh
+    # synthesizer each, so that each case captures its own graphs
+    graphs = {}
+    for label, T, seqs, kw in (("B1_T1", 1, [tokens], {}),
+                               ("B8_T1", 1, batch, {"mel_bucket": 1024}),
+                               ("B8_T2", 2, batch, {"mel_bucket": 1024})):
+        res = graph_vs_eager(Synthesizer(cfg, model, vocoder, T=T), seqs,
+                             "lj_synth_b8", **kw)
+        graphs[label] = res
+        log(f"  graph replay vs eager {label}: " + ", ".join(
+            f"{m} bit-equal {res[m]['bit_equal']} (max |mel diff| "
+            f"{res[m]['max_mel_diff']:.3e}, rel {res[m]['mel_rel_err']:.3e})"
+            for m in ("seeded", "given"))
+            + f"; eager {res['eager_ms']:.2f} ms, replay "
+            f"{res['replay_ms']:.2f} ms; new controls eager "
+            f"{res['eager_fresh_ms']:.2f} ms, capturing "
+            f"{res['capture_call_ms']:.2f} ms; counters {res['counts']}")
+    results["graph_vs_eager"] = graphs
+    # device memory as graphs of one shape accumulate, up to MAX_GRAPHS
+    for label, seqs, kw in (("B1_T1", [tokens], {}),
+                            ("B8_T1", batch, {"mel_bucket": 1024})):
+        mem = graph_memory(Synthesizer(cfg, model, vocoder, T=1), seqs, **kw)
+        graphs[label]["memory"] = mem
+        log(f"  graph memory {label} (GB reserved / allocated): " + ", ".join(
+            f"{k} {v['reserved_gb']:.3f} / {v['allocated_gb']:.3f}"
+            for k, v in mem.items() if isinstance(v, dict))
+            + f"; {mem['reserved_mb_per_graph']:.2f} MB reserved a graph "
+            f"from the 10th, its own buffers {mem['static_mb_per_graph']:.2f}"
+            " MB")
 
     # -- phase 5: zero-shot and samplers at full VCTK width ----------------
     zero_shot = zero_shot_phase(counters, vocoder,

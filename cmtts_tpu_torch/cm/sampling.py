@@ -26,7 +26,11 @@ SAMPLERS = ("onestep", "multistep", "our_multistep", "euler", "heun", "dpm",
 
 
 def _bcast(sigma, batch: int, device) -> torch.Tensor:
-    return torch.as_tensor(sigma, dtype=torch.float32).to(device).expand(batch)
+    """``sigma`` (a host float or a CPU scalar tensor) rounded to float32,
+    as (batch,) on ``device``: a fill on the device, no host-to-device
+    copy, so that a CUDA graph can capture it."""
+    return torch.full((batch,), float(sigma), dtype=torch.float32,
+                      device=device)
 
 
 class _Draws:
@@ -77,8 +81,8 @@ def stochastic_iterative(denoise: DenoiseFn, x_T: torch.Tensor,
     for i in range(len(ts) - 1):
         x0 = denoise(x, _bcast(grid[i], B, x.device))
         next_t = grid[i + 1]
-        scale = torch.sqrt(torch.clamp(next_t ** 2 - sched.sigma_min ** 2,
-                                       min=0.0)).to(x.device)
+        scale = torch.full((), float(torch.sqrt(torch.clamp(
+            next_t ** 2 - sched.sigma_min ** 2, min=0.0))), device=x.device)
         x = x0 + draw(x) * scale * s_noise_scale
     return x
 

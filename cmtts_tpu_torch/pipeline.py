@@ -23,8 +23,11 @@ through the MRF kernels.
 from __future__ import annotations
 
 import copy
+import itertools
 import math
+import threading
 import warnings
+from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
@@ -40,7 +43,7 @@ from cmtts_tpu_torch.core.masks import (
     pad_to,
     pick_bucket,
 )
-from cmtts_tpu_torch.core.trace import span
+from cmtts_tpu_torch.core.trace import count, span
 from cmtts_tpu_torch.models.cmtts import CMTTS
 from cmtts_tpu_torch.models.hifigan import (
     HiFiGANGenerator,
@@ -54,6 +57,92 @@ from cmtts_tpu_torch.parallel.distributed import (
     group_size,
     shard_module,
 )
+
+
+# captured graphs a Synthesizer keeps; a key past them runs eagerly, so that
+# callers choosing many distinct controls cannot grow memory without bound.
+# Besides the shared pool, each graph holds its own inputs, noise and
+# outputs: 5.4 MB allocated a graph at B=8 and mel bucket 1024 on an H100
+# (0.3 MB at B=1), so 64 of them hold about 0.35 GB.
+MAX_GRAPHS = 64
+
+# the always-on counters of the synthesis call: every ``synthesize``, the
+# calls a graph replay served, and the captures
+GRAPH_COUNTERS = ("synth.calls", "synth.graph_replays",
+                  "synth.graph_captures")
+
+
+def replays_graphs(device: torch.device, dp_group=None,
+                   tp_group=None) -> bool:
+    """Whether a call's conditioning and sampler replay a CUDA graph: on a
+    CUDA device with no data or tensor group (whose collectives stay
+    outside any capture)."""
+    return device.type == "cuda" and dp_group is None and tp_group is None
+
+
+def graph_key(texts: torch.Tensor, t_mel: int, speakers, spker_embeds,
+              sampler: str, T: int, sample_steps: int,
+              controls: tuple) -> tuple:
+    """Everything a captured call depends on besides its inputs' values:
+    B and the text bucket (``texts``' shape), the mel bucket, the sampler
+    with T (and its grid size and ts where they apply), the three controls
+    and the speaker input's kind (ids or embeddings, by shape and type)."""
+    def kind(x):
+        return None if x is None else (tuple(x.shape), x.dtype)
+
+    steps = None if sampler in ("onestep", "our_multistep") else sample_steps
+    ts = default_ts(T) if sampler == "multistep" else None
+    return (tuple(texts.shape), t_mel, sampler, T, steps, ts,
+            tuple(float(c) for c in controls), kind(speakers),
+            kind(spker_embeds))
+
+
+@dataclass
+class _Graph:
+    """One captured call: its graph, the static inputs it reads and the
+    static outputs it writes."""
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple          # texts, src_lens, speakers, spker_embeds
+    x_T: torch.Tensor
+    noise: list            # the sampler's later unit normals
+    mel: torch.Tensor
+    mel_lens: torch.Tensor
+
+
+def draw_into(x_T_buf: torch.Tensor, noise_bufs: Sequence[torch.Tensor],
+              sigma_max: float, x_T: torch.Tensor | None = None,
+              noise=None, generator: torch.Generator | None = None) -> None:
+    """Fill a graph's noise inputs as the eager sampler draws them from
+    ``generator``: x_T as ``sample_mel`` draws it (unit normals times
+    sigma_max), then each later unit normal in order, as ``_Draws`` does;
+    a given ``x_T`` or ``noise`` is copied in instead."""
+    if x_T is None:
+        x_T_buf.normal_(generator=generator).mul_(sigma_max)
+    else:
+        x_T_buf.copy_(x_T)
+    if noise is None:
+        for buf in noise_bufs:
+            buf.normal_(generator=generator)
+        return
+    given = list(itertools.islice(noise, len(noise_bufs)))
+    if len(given) < len(noise_bufs):
+        raise ValueError("the sampler draws more noise than was given")
+    for buf, z in zip(noise_bufs, given):
+        buf.copy_(z)
+
+
+class _CountedZeros:
+    """The sampler's later draws during a warm-up: zeros, counted."""
+
+    def __init__(self, shape, device):
+        self.shape, self.device, self.n = shape, device, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.n += 1
+        return torch.zeros(self.shape, device=self.device)
 
 
 def warn_if_bucket_saturated(mel_lens: np.ndarray, mel_bucket: int) -> bool:
@@ -89,6 +178,23 @@ class Synthesizer:
     keeps this rank's Megatron shards of its blocks and sums their partial
     outputs over the group (``parallel.distributed.shard_module``); every
     rank of the group makes the same call on the same rows.
+
+    On a CUDA device with neither group, a call's conditioning and sampler
+    run as one replay of a ``torch.cuda.CUDAGraph``, captured at the first
+    call of each :func:`graph_key` (after an eager warm-up; both on one
+    side stream), at most ``MAX_GRAPHS`` of them; the vocoder runs eagerly
+    after it.  That first call costs about two eager calls (a warm-up, a
+    capture, a replay), and each later call of the key saves the eager
+    launches.  The noise is drawn outside the graph, from the call's
+    generator in the eager sampler's order, into the graph's input
+    buffers, so a replay computes what the eager call computes.  On the
+    CPU, with a group, and past ``MAX_GRAPHS``, a call stays eager.  What
+    ``synthesize`` and ``__call__`` return is the caller's own (the graph's
+    outputs are copied out on the device).  The graphs replay one at a
+    time and share one memory pool for their intermediates, which the
+    largest bounds; each graph also keeps its own static inputs, noise
+    buffers and outputs, so memory grows by those with each key, up to
+    ``MAX_GRAPHS`` keys.
     """
 
     def __init__(self, cfg: Config, model: CMTTS,
@@ -121,6 +227,11 @@ class Synthesizer:
         self.mel_buckets = tuple(mel_buckets)
         self.compute_dtype = compute_dtype
         self.shapes_run: set[tuple[int, bool]] = set()
+        self._graphs = ({} if replays_graphs(self.device, dp_group, tp_group)
+                        else None)
+        self._graph_pool = self._graph_stream = None
+        self._graph_lock = threading.Lock()
+        self._graph_done = None     # the last replay's copies out, recorded
 
     @torch.no_grad()
     def synthesize(self, texts: torch.Tensor, src_lens: torch.Tensor,
@@ -134,6 +245,39 @@ class Synthesizer:
         speakers (ids (B,) or embeddings (B, D), for a multi-speaker model)
         on the device -> (mel (B, t_mel, n_mels), mel_lens (B,),
         wav (B, t_mel * hop) or None), all tensors on the device."""
+        count("synth.calls")
+        inputs = (texts, src_lens, speakers, spker_embeds)
+        controls = (d_control, p_control, e_control)
+        key = None
+        if self._graphs is not None:
+            key = graph_key(texts, t_mel, speakers, spker_embeds,
+                            self.sampler, self.T, self.sample_steps,
+                            controls)
+            if key not in self._graphs and len(self._graphs) >= MAX_GRAPHS:
+                key = None
+        if key is None:
+            mel, mel_lens = self._sample(inputs, t_mel, controls, x_T, noise,
+                                         generator)
+        else:
+            mel, mel_lens = self._replay(key, inputs, t_mel, controls, x_T,
+                                         noise, generator)
+        wav = None
+        if self.vocoder is not None:
+            with span("synth.vocode"):
+                if isinstance(self.vocoder, MelGANGenerator):
+                    # ln-mel -> log10-mel
+                    wav = self.vocoder(mel / math.log(10.0))
+                else:
+                    wav = hifigan_apply_fused(self.vocoder, mel,
+                                              self.vocoder_packed,
+                                              self.compute_dtype)
+        return mel, mel_lens, wav
+
+    def _sample(self, inputs, t_mel: int, controls, x_T, noise, generator):
+        """The eager conditioning and sampler -> (mel, mel_lens): the
+        fallback, and what a graph captures."""
+        texts, src_lens, speakers, spker_embeds = inputs
+        d_control, p_control, e_control = controls
         sched = self.sched
         cdt = self.compute_dtype
         with span("synth.condition"):
@@ -158,16 +302,67 @@ class Synthesizer:
                 steps=self.sample_steps,
                 ts=default_ts(self.T) if self.sampler == "multistep" else None,
                 x_T=x_T, noise=noise, generator=generator, device=self.device)
-        wav = None
-        if self.vocoder is not None:
-            with span("synth.vocode"):
-                if isinstance(self.vocoder, MelGANGenerator):
-                    # ln-mel -> log10-mel
-                    wav = self.vocoder(mel / math.log(10.0))
-                else:
-                    wav = hifigan_apply_fused(self.vocoder, mel,
-                                              self.vocoder_packed, cdt)
-        return mel, cond_out["mel_lens"], wav
+        return mel, cond_out["mel_lens"]
+
+    def _capture(self, inputs, t_mel: int, controls) -> _Graph:
+        """Warm the call up eagerly on a side stream (counting the
+        sampler's draws), then capture it into the shared pool."""
+        shape = (inputs[0].shape[0], t_mel, self.cfg.stft.n_mel_channels)
+        static = tuple(None if x is None else x.clone() for x in inputs)
+        x_T = torch.zeros(shape, device=self.device)
+        draws = _CountedZeros(shape, self.device)
+        if self._graph_pool is None:
+            # one side stream for every warm-up: the caching allocator
+            # reuses a freed block only on its own stream
+            self._graph_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        side = self._graph_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._sample(static, t_mel, controls, x_T, draws, None)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        noise = [torch.zeros(shape, device=self.device)
+                 for _ in range(draws.n)]
+        graph = torch.cuda.CUDAGraph()
+        # captured on the side stream too, without ``torch.cuda.graph``'s
+        # entry, which empties the allocator's cache (and may collect
+        # garbage): every later eager allocation would pay cudaMalloc again
+        with torch.cuda.stream(side):
+            graph.capture_begin(self._graph_pool,
+                                capture_error_mode="thread_local")
+            try:
+                mel, mel_lens = self._sample(static, t_mel, controls, x_T,
+                                             noise, None)
+            finally:
+                graph.capture_end()
+        count("synth.graph_captures")
+        return _Graph(graph, static, x_T, noise, mel, mel_lens)
+
+    def _replay(self, key, inputs, t_mel: int, controls, x_T, noise,
+                generator):
+        """Fill the key's graph's inputs (capturing it first if new), draw
+        its noise from ``generator`` as the eager sampler would, replay it
+        on the current stream and copy its outputs out."""
+        with self._graph_lock:
+            g = self._graphs.get(key)
+            if g is None:
+                g = self._graphs[key] = self._capture(inputs, t_mel, controls)
+            with span("synth.replay"):
+                stream = torch.cuda.current_stream(self.device)
+                if self._graph_done is None:
+                    self._graph_done = torch.cuda.Event()
+                else:   # the last replay may have run on another stream
+                    stream.wait_event(self._graph_done)
+                for buf, x in zip(g.inputs, inputs):
+                    if buf is not None:
+                        buf.copy_(x)
+                draw_into(g.x_T, g.noise, self.sched.sigma_max, x_T, noise,
+                          generator)
+                g.graph.replay()
+                mel, mel_lens = g.mel.clone(), g.mel_lens.clone()
+                self._graph_done.record(stream)
+        count("synth.graph_replays")
+        return mel, mel_lens
 
     def __call__(self, token_seqs: Sequence[np.ndarray],
                  speakers: np.ndarray | None = None,

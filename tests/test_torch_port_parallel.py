@@ -319,6 +319,16 @@ def test_parallel_synthesis_matches_one_process(runs, case, ref):
         np.testing.assert_allclose(wav, wav1, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["dp2_synth", "tp2_synth"])
+def test_parallel_synthesis_stays_eager(runs, case):
+    """A call with a data or tensor group replays no CUDA graph, whatever
+    its device: one call counted, no replay, no capture on each rank."""
+    for out in runs[2]:
+        assert out["synth_counts"][case] == {
+            "synth.calls": 1, "synth.graph_replays": 0,
+            "synth.graph_captures": 0}
+
+
 def test_cli_dp2_matches_one_process_run(runs):
     """Three CLI steps on two ranks (batch 4, LSM sampler, a log each
     step): the losses, the LSM history and the final state of the

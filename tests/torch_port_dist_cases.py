@@ -61,9 +61,12 @@ def _step(inp, batch, dp_group=None, tp_group=None, rank=0, dp=1,
             gather_per_sample(m["loss_per_sample"], dp_group))
 
 
-def _synth(inp, dp_group=None, tp_group=None, seqs="seqs"):
+def _synth(inp, counts, name, dp_group=None, tp_group=None, seqs="seqs"):
+    """One synthesis call on this rank; ``counts[name]`` gets the rise of
+    the synthesis-call counters over it."""
+    from cmtts_tpu_torch.core.trace import counters
     from cmtts_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
-    from cmtts_tpu_torch.pipeline import Synthesizer
+    from cmtts_tpu_torch.pipeline import GRAPH_COUNTERS, Synthesizer
 
     cfg, model = _model(inp)
     voc = HiFiGANGenerator(HiFiGANConfig(upsample_initial_channel=32,
@@ -72,7 +75,12 @@ def _synth(inp, dp_group=None, tp_group=None, seqs="seqs"):
     synth = Synthesizer(cfg, model, voc.eval(), text_buckets=(8,),
                         mel_buckets=(32,), compute_dtype=torch.float32,
                         device="cpu", dp_group=dp_group, tp_group=tp_group)
-    return synth(inp[seqs], seed=7)
+    before = counters()
+    out = synth(inp[seqs], seed=7)
+    after = counters()
+    counts[name] = {k: after.get(k, 0) - before.get(k, 0)
+                    for k in GRAPH_COUNTERS}
+    return out
 
 
 def _tp_denoiser(inp, tp_group):
@@ -111,6 +119,7 @@ def cases(inp, rank, world):
 
     dp_mesh = make_mesh(1)            # dp 2
     tp_mesh = make_mesh(2)            # dp 1 x tp 2
+    counts = {}
     out = {
         "dp2": _step(inp, inp["batch4"], dp_mesh.data, rank=rank, dp=world),
         "dp2_padded": _step(inp, inp["batch3_padded"], dp_mesh.data,
@@ -119,13 +128,16 @@ def cases(inp, rank, world):
                             dp=world, microbatch=2),
         "tp2": _step(inp, inp["batch4"], tp_group=tp_mesh.model),
         "tp2_denoiser": _tp_denoiser(inp, tp_mesh.model),
-        "dp2_synth": _synth(inp, dp_group=dp_mesh.data),
-        "tp2_synth": _synth(inp, tp_group=tp_mesh.model, seqs="seqs2"),
+        "dp2_synth": _synth(inp, counts, "dp2_synth",
+                            dp_group=dp_mesh.data),
+        "tp2_synth": _synth(inp, counts, "tp2_synth",
+                            tp_group=tp_mesh.model, seqs="seqs2"),
         "cli_dp2": _cli(inp["roots"]["dp_ranks"], "--total_step", "3"),
         "cli_dp2_padded": _cli(inp["roots"]["padded_ranks"], "--total_step",
                                "2"),
         "cli_tp2": _cli(inp["roots"]["tp_ranks"], "--tp", "2",
                         "--total_step", "2"),
+        "synth_counts": counts,
     }
     return out
 
