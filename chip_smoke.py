@@ -18,7 +18,7 @@ exits non-zero):
      the kernels (C = 8, V2's last stage, which the bf16 route pads to 16
      channels, to 256) in float32 (the SIMT conv kernels) and bfloat16
      (the wgmma conv kernels), each held to its plain version within about
-     a rounding of its type, the shapes of a 768-frame mel at B=1 and of
+     a rounding of its type, the shapes of a 256-frame mel at B=1 and of
      the batch-8, 1024-frame main path in both types (timed: kernel,
      plain, the bound at the type's own peak, the share of it reached,
      TFLOP/s of useful work and, in bf16, of the MMA work the kernel's
@@ -3884,6 +3884,7 @@ def main(argv=None) -> int:
         hifigan_apply_fused,
     )
     from cmtts_tpu_torch.core.device import cli_device
+    from cmtts_tpu_torch.core.trace import counters as trace_counters
     from cmtts_tpu_torch.ops import mrf
     from cmtts_tpu_torch.pipeline import Synthesizer
 
@@ -3931,15 +3932,26 @@ def main(argv=None) -> int:
         post = posts[C] if head else None
         kern = run_stage(mrf, x, packs[C], dtype, post, streamed)
         plain = plain_stage(mrf, x, packs[C], dtype, post)
+        before = trace_counters()
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         f32 = dtype == torch.float32
+        # the bf16 conv launches the wrapper counted, and how many of them
+        # loaded the next tile's window under this tile's MMAs
+        after = trace_counters()
+        convs, two_slot = (after.get(n_, 0) - before.get(n_, 0)
+                           for n_ in ("mrf.wg_convs", "mrf.wg_convs_two_slot"))
+        if convs != (0 if f32 else 2 * len(KS) * len(DS)):
+            raise AssertionError(f"{label} C={C} {dtype}: {convs} bf16 conv "
+                                 "launches counted")
         tol = F32_TOL if f32 else BF16_STAGE_TOL
         err = check(f"{label} B={B} C={C} L={L} head={head} {dtype}",
                     out, ref, tol)
         bound_ms, bound_by = stage_bound(B, C, L, head, dtype)
         res = {"err": err, "bound_ms": bound_ms, "bound_by": bound_by}
         note = ""
+        if not f32:
+            res["two_slot"] = two_slot / convs
         if timed:
             res["ms"] = cuda_ms(kern)
             res["plain_ms"] = cuda_ms(plain)
@@ -3962,6 +3974,8 @@ def main(argv=None) -> int:
                          f"{res['issued_over_useful']:.3f}x) ")
                 if "library_ms" in res:
                     note += f"cuDNN bf16 {res['library_ms']:.3f} ms "
+        if not f32:
+            note += f"two-slot {two_slot}/{convs} "
         log(f"  {label:9s} {'streamed' if streamed else 'fused':8s} B={B} "
             f"C={C:3d} L={L:6d} head={int(head)} "
             f"{str(dtype).split('.')[-1]:8s} max|err|={err:.3e} {note}"
@@ -3976,11 +3990,12 @@ def main(argv=None) -> int:
                 for head in ((False,) if C > 128 else (False, True)):
                     case("edge", 2, C, L, head, dtype)
     stages = ((256, 8), (128, 64), (64, 128), (32, 256))
-    # the stages of a 768-frame mel, B=1, timed (the latency view)
+    # the stages of a 256-frame mel, B=1, timed (the latency view: 16
+    # position tiles at C = 256)
     timing_b1 = {dt: [] for dt in dtypes}
     for dtype in dtypes:
         for i, (C, up) in enumerate(stages):
-            timing_b1[dtype].append(case("mel768", 1, C, 768 * up, i == 3,
+            timing_b1[dtype].append(case("mel256", 1, C, 256 * up, i == 3,
                                          dtype, timed=True))
     # the main path's B=8, mel-1024 stages, timed in both types
     timing = {dt: {"fused": [], "streamed": []} for dt in dtypes}
@@ -3993,7 +4008,7 @@ def main(argv=None) -> int:
         for label, rows in (
                 ("main B=8 mel 1024",
                  timing[dtype]["streamed"] + timing[dtype]["fused"]),
-                ("B=1 mel 768", timing_b1[dtype])):
+                ("B=1 mel 256", timing_b1[dtype])):
             ms = sum(r_["ms"] for r_ in rows)
             bound = sum(r_["bound_ms"] for r_ in rows)
             lib = ("" if "library_ms" not in rows[0] else
@@ -4004,7 +4019,8 @@ def main(argv=None) -> int:
                 f" TFLOP/s useful, bound {bound:.3f} ms ({bound / ms:.1%}), "
                 f"plain {sum(r_['plain_ms'] for r_ in rows):.3f} ms{lib}")
     stage_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "tflops",
-                  "of_bound", "err", "issued_tflops", "issued_over_useful")
+                  "of_bound", "err", "issued_tflops", "issued_over_useful",
+                  "two_slot")
 
     def stage_rows(rows):
         return [{k_: r_[k_] for k_ in stage_keys if k_ in r_} for r_ in rows]
@@ -4015,7 +4031,7 @@ def main(argv=None) -> int:
                  for dt in dtypes}
     if kernels_only:
         print(json.dumps({"build_s": build_s, "stages_B8": stages_b8,
-                          "stages_B1_mel768": stages_b1}))
+                          "stages_B1_mel256": stages_b1}))
         print(smi)
         return 0
 
@@ -4228,7 +4244,7 @@ def main(argv=None) -> int:
                 "library_ms": (None if f32 else
                                sum(r_["library_ms"] for r_ in rows))})
     print(json.dumps({"rtf": results, "build_s": build_s,
-                      "stages_B8": stages_b8, "stages_B1_mel768": stages_b1}))
+                      "stages_B8": stages_b8, "stages_B1_mel256": stages_b1}))
     print(json.dumps({"train": train}))
     print(json.dumps({"data": data}))
     print(json.dumps({"serve": served}))

@@ -34,29 +34,39 @@
 //    (input-channel chunk of cw = min(64, Cp) channels, tap, 16 channels),
 //    so that the first chunk's MMAs start while the later chunks of the
 //    window still load;
-//  * the activation window [BM + (k - 1) d][Cp + 8] of a tile's rows is
-//    loaded by the consumers with cp.async (16 bytes a copy, zero fill
-//    outside [0, L)), one commit group an input-channel chunk, and serves
-//    every tap at a row offset of t d.  The 8-element pad makes the row
-//    stride an odd multiple of 16 bytes, so ldmatrix is conflict-free.
-//    Where two window slots fit in shared memory (every conv at C <= 128;
-//    at C = 256 the 6 conv1 with (k - 1) d <= 18 of the 9), a block is
-//    persistent: it walks position tiles blockIdx.y, + gridDim.y, ... (as
-//    many blocks as the SMs hold) and loads the next tile's window into
-//    the other slot during this tile's MMAs.  conv2's residual rows come
-//    into shared memory with the last chunk of the window;
-//  * wgmma.m64nBNk16 takes A from registers and B from shared memory.  A
-//    warp's 16 rows of A are the m16n8k16 A fragment, loaded by one
-//    ldmatrix.x4 at the tap's row offset; conv1 applies lrelu(0.1) to them
-//    in registers, in f32 and rounded to bf16, as the plain version does.
-//    A is not read by descriptor because a tap shift of t d rows breaks the
-//    8-row core-matrix and swizzle-atom alignment that a descriptor needs.
-//    A warpgroup loads a weight tile's 4 steps of A into registers, then
-//    issues their MMAs as one commit group and waits for it (ptxas
-//    serialises wgmma if registers feeding one are written while another
-//    is in flight); the two consumer warpgroups overlap each other's loads
-//    and MMAs.  The steps' (chunk, tap, channels) advance by counters: a
-//    division a step cost more than the step's MMAs;
+//  * the activation window of a tile's BM + (k - 1) d rows serves every
+//    tap.  It is stored as planes of 8 channels, [Cp / 8][rows][8] bf16: a
+//    plane holds 16 bytes a position, so the 8 x 8 core matrix of
+//    positions p..p + 7 is 128 contiguous bytes at any p, and wgmma reads A
+//    by a descriptor without swizzle (SBO 128 bytes between 8-position
+//    groups, LBO the plane stride between a k16 step's two 8-channel
+//    halves).  A tap's shift of t d rows is 16 t d bytes on the
+//    descriptor's start: no copy a tap.  A plane is what a tensor copy
+//    (TMA) of a box of 8 channels x rows positions writes, so a second
+//    lane of the producer warp brings the window in, Cp / 8 planes of one
+//    or two copies each, through a tensor map of the conv's input [B][L]
+//    [Cp] that fills zeros outside [0, L) (SAME padding); each
+//    input-channel chunk completes on a barrier of its own, and the
+//    consumers issue no copies.  conv1's lrelu(0.1) is applied in place
+//    once per element, in f32 and rounded to bf16 as the plain version
+//    does, when its chunk has landed; then a proxy fence and a barrier
+//    hand the chunk to the MMAs.  Where two window slots fit in shared
+//    memory (every conv at C <= 128; at C = 256 the 8 conv1 with (k - 1) d
+//    <= 30 of the 9), a block is persistent: it walks position tiles
+//    blockIdx.y, + gridDim.y, ... (as many blocks as the SMs hold) and the
+//    next tile's window loads into the other slot during this tile's MMAs.
+//    conv2's residual rows come into shared memory beside the window, by
+//    the consumers' cp.async, a tile ahead where the block is persistent;
+//  * wgmma.m64nBNk16 takes both operands from shared memory, so no
+//    register feeds an MMA but the accumulators: a warpgroup issues a
+//    weight tile's 4 MT MMAs as one commit group and keeps kMmaGroups
+//    groups in flight while it waits for the next tile and issues it,
+//    releasing a ring slot once the group that read it has completed.  It
+//    lets its MMAs finish only before a tile that reaches a chunk not yet
+//    handed over (nchunk times a position tile), since ptxas serialises
+//    wgmma across the divergent lrelu loop of that hand-over.  The steps'
+//    (chunk, tap, channels) advance by counters: a division a step would
+//    cost as much as the step's MMAs;
 //  * B: the host packer (ops/mrf.py::pack_wg_tiles) cuts each conv's
 //    weights into tiles of 4 k16 steps (64 K values) x BN output channels,
 //    stored in wgmma's K-major canonical layout with the 128-byte swizzle
@@ -70,14 +80,16 @@
 //    the MMAs reading the slot are done.  A step's B descriptor is the
 //    slot's address + 32 bytes a step within the tile, SBO 1024 bytes;
 //  * sizes: an m64 x BN tile costs BN / 2 f32 accumulator registers a
-//    thread.  ptxas held these 288-thread kernels to 168 registers, and
-//    at BN = 128 only MT = 1 left it the registers to keep a tile's MMAs
-//    in flight (with MT = 2 it serialised them): BM = 128 at C >= 128 (two
-//    blocks a position tile at C = 256), BM = 256 below.  A block does
-//    2 BM BN K FLOP for 2 K BN bytes of weights from L2.  At C = 256,
-//    k = 11, d = 5: a 93,984-byte window + 4 x 16,384-byte slots + 1,024
-//    bytes of alignment + 64 of barriers = 160,608 of the 232,448 bytes a
-//    block may use;
+//    thread: BM = 128 at C >= 64 (MT = 1; two blocks a position tile at
+//    C = 256), BM = 256 below.  A block does 2 BM BN K FLOP for 2 K BN
+//    bytes of weights from L2.  At BN <= 64 an SM holds two blocks (every
+//    conv at C <= 64 fits twice with two window slots): the registers that
+//    A no longer takes leave a thread enough of the 112 that two blocks
+//    allow, and one block's epilogue and window loads then overlap the
+//    other's MMAs.  At C = 256, k = 11, d = 5: a 94,208-byte window (184
+//    rows) + 4 x 16,384-byte slots + 1,024 bytes of alignment + 208 of
+//    barriers = 160,976 of the 232,448 bytes a block may use.  The window
+//    area is at least the epilogue's tile, which it holds later;
 //  * the epilogue keeps the plain version's roundings: bias, then bf16;
 //    conv1: h = bf16(lrelu(.)); conv2: y = bf16(y + bf16(.)), and on a
 //    ResBlock's last pair the f32 sum over ResBlocks, (B, C, L): the first
@@ -87,6 +99,9 @@
 //    rows and the sum along positions, both coalesced;
 //  * the head (14 C L B FLOP) is a SIMT kernel over the f32 sum, with
 //    bf16(lrelu_0.01(bf16(sum))) staged in shared memory as in mrf.cu.
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include <algorithm>
 
@@ -104,8 +119,11 @@ constexpr int kConsumers = 128 * kConsumerWGs;
 constexpr int kWgThreads = kConsumers + 32;  // + the producer warp
 constexpr int kTileK = 64;        // K values a weight tile (a swizzle row)
 constexpr int kStages = 4;        // weight tiles in the ring
+constexpr int kMmaGroups = 1;     // MMA commit groups kept in flight
 constexpr int kMaxBN = 128;       // widest block in output channels
-constexpr int kRowPad = 8;        // bf16 pad of a window row
+constexpr int kRowPad = 8;        // bf16 pad of an epilogue tile's row
+constexpr int kMaxBox = 256;      // rows a tensor copy (TMA box) may have
+constexpr int kMaxChunks = 8;     // window chunks a slot has barriers for
 constexpr int kAlign = 1024;      // a swizzle atom's alignment
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 // the head kernel
@@ -119,24 +137,70 @@ __host__ __device__ constexpr int tile_bytes(int bn) {
 
 // m64 tiles a consumer warpgroup for a block of bn output channels
 __host__ __device__ constexpr int wg_mt(int bn) {
-  return bn == kMaxBN ? 1 : 2;
+  return bn >= 64 ? 1 : 2;
 }
 
-// Bytes of one window slot: the window [BM + (k - 1) d][cp + 8] and, for
-// conv2, the residual rows [BM][bn + 8] beside it.
+// blocks an SM holds at once (the conv kernel's launch bound): two at bn <=
+// 64, where ptxas fits a thread in the 112 registers that leave and the
+// shared memory fits twice, so that one block's epilogue and window loads
+// overlap the other's MMAs
+__host__ __device__ constexpr int wg_min_blocks(int bn) {
+  return bn <= 64 ? 2 : 1;
+}
+
+// positions a tile
+__host__ __device__ constexpr int wg_bm(int bn) {
+  return 64 * wg_mt(bn) * kConsumerWGs;
+}
+
+// input channels a window chunk (a commit group): the widest of 64, 32, 16
+// dividing cp (ops/mrf.py::wg_chunk)
+__host__ __device__ constexpr int wg_cw(int cp) {
+  return cp % 64 == 0 ? 64 : cp % 32 == 0 ? 32 : 16;
+}
+
+// Rows of one tensor copy of a window plane: the BM + (k - 1) d positions
+// in as few copies of at most kMaxBox rows as hold them, rounded up to 8
+// rows so that every copy's shared address is 128-byte aligned.
+__host__ __device__ constexpr int win_boxes(int bn, int k, int d) {
+  return (wg_bm(bn) + (k - 1) * d + kMaxBox - 1) / kMaxBox;
+}
+__host__ __device__ constexpr int box_rows(int bn, int k, int d) {
+  return ((wg_bm(bn) + (k - 1) * d + win_boxes(bn, k, d) - 1) /
+              win_boxes(bn, k, d) +
+          7) / 8 * 8;
+}
+
+// rows of a window plane: its copies'
+__host__ __device__ constexpr int win_rows(int bn, int k, int d) {
+  return win_boxes(bn, k, d) * box_rows(bn, k, d);
+}
+
+// bytes of the epilogue's tile [BM][BN + kRowPad] bf16, and of conv2's
+// residual rows in the same layout
+__host__ __device__ constexpr int tile_rows_bytes(int bn) {
+  return wg_bm(bn) * (bn + kRowPad) * 2;
+}
+
+// Bytes of one window slot: the window [cp / 8][win_rows][8] (or the
+// epilogue's tile, where that is larger) and, for conv2, the residual rows
+// beside it.
 __host__ __device__ constexpr int slot_bytes(int bn, int cp, int k, int d,
                                              bool conv1) {
-  return (64 * wg_mt(bn) * kConsumerWGs + (k - 1) * d) * (cp + kRowPad) * 2 +
-         (conv1 ? 0 : 64 * wg_mt(bn) * kConsumerWGs * (bn + 8) * 2);
+  return (cp * win_rows(bn, k, d) * 2 > tile_rows_bytes(bn)
+              ? cp * win_rows(bn, k, d) * 2
+              : tile_rows_bytes(bn)) +
+         (conv1 ? 0 : tile_rows_bytes(bn));
 }
 
 // Dynamic shared memory of one conv block: alignment slack, the ring,
-// one window slot (two when persistent), the full and empty barriers
-// (with one slot: ops/mrf.py::wg_smem_bytes).
+// one window slot (two when persistent), the ring's full and empty
+// barriers, each slot's chunk barriers and its empty barrier
+// (ops/mrf.py::wg_smem_bytes).
 int wg_smem_bytes(int bn, int cp, int k, int d, bool conv1, int persist) {
   return kAlign + kStages * tile_bytes(bn) +
          (persist ? 2 : 1) * slot_bytes(bn, cp, k, d, conv1) +
-         2 * kStages * 8;
+         (2 * kStages + 2 * kMaxChunks + 2) * 8;
 }
 
 // round to bf16 and back
@@ -156,12 +220,11 @@ __device__ __forceinline__ uint32_t lrelu2(uint32_t v) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
+// order this thread's generic-proxy accesses to shared memory (the lrelu
+// pass's, the epilogue's) before the async proxy's: the MMAs' reads, the
+// tensor copies' writes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -174,25 +237,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// at most n of this thread's newest commit groups still in flight: up to
-// 2 nchunk - 1 = 7 at C = 256 with two window slots (a larger n waits for
-// 7, more than it must)
+// at most N of this thread's newest commit groups still in flight
 template <int N>
-__device__ __forceinline__ void cp_async_wait_n() {
+__device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: cp_async_wait_n<0>(); break;
-    case 1: cp_async_wait_n<1>(); break;
-    case 2: cp_async_wait_n<2>(); break;
-    case 3: cp_async_wait_n<3>(); break;
-    case 4: cp_async_wait_n<4>(); break;
-    case 5: cp_async_wait_n<5>(); break;
-    case 6: cp_async_wait_n<6>(); break;
-    default: cp_async_wait_n<7>(); break;
-  }
 }
 
 // the consumer warpgroups only (named barrier 1)
@@ -212,9 +260,18 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
+// arrive on the barrier where pred holds: a predicate inside the asm, not
+// a branch, since ptxas serialises wgmma across a divergent branch taken
+// while MMAs are in flight
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
 }
 
 // wait for the completion of the barrier's phase of the given parity
@@ -229,6 +286,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "DONE:\n"
       "}\n" ::"r"(bar),
       "r"(parity)
+      : "memory");
+}
+
+// the box of a 3-D tensor map at coordinates (x, y, z) into shared memory,
+// completing on bar; the elements outside the tensor are zeros
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            int x, int y, int z,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          dst),
+      "l"(map), "r"(x), "r"(y), "r"(z), "r"(bar)
       : "memory");
 }
 
@@ -273,127 +343,88 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, A from registers (the
-// m16n8k16 A fragment of each warp's 16 rows), B K-major by descriptor.
-// d[4 i + 2 r + e] is row 16 warp + lane / 4 + 8 r, column 8 i + 2 (lane %
-// 4) + e of the m64 x N tile.
+// Descriptor of a K-major A operand without swizzle (mode 0, bits 62-63),
+// a 64 x 16 slice of the window: start address >> 4 (bits 0-13), LBO =
+// the plane stride between the step's two 8-channel halves (>> 4, bits
+// 16-29), SBO = 128 bytes between 8-position core matrices (>> 4, bits
+// 32-45).  ops/mrf.py::wg_a_desc mirrors it.
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, A and B K-major by
+// descriptor.  d[4 i + 2 r + e] is row 16 warp + lane / 4 + 8 r, column
+// 8 i + 2 (lane % 4) + e of the m64 x N tile.
+#define MRF_WGMMA_OPEN(n, s) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %" #s ", 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n" #n "k16.f32.bf16.bf16 {"
+#define MRF_WGMMA_CLOSE(a, b) "}, %" #a ", %" #b ", p, 1, 1, 0, 0;\n}\n"
+#define MRF_R8(i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(MRF_WGMMA_OPEN(16, 10)
+                 "%0, %1, %2, %3, %4, %5, %6, %7"
+                 MRF_WGMMA_CLOSE(8, 9)
+                 : MRF_R8(0)
+                 : "l"(da), "l"(db), "r"(1));
   }
 };
 
 template <>
 struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(MRF_WGMMA_OPEN(32, 18)
+                 "%0, %1, %2, %3, %4, %5, %6, %7, "
+                 "%8, %9, %10, %11, %12, %13, %14, %15"
+                 MRF_WGMMA_CLOSE(16, 17)
+                 : MRF_R8(0), MRF_R8(8)
+                 : "l"(da), "l"(db), "r"(1));
   }
 };
 
 template <>
 struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(MRF_WGMMA_OPEN(64, 34)
+                 "%0, %1, %2, %3, %4, %5, %6, %7, "
+                 "%8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31"
+                 MRF_WGMMA_CLOSE(32, 33)
+                 : MRF_R8(0), MRF_R8(8), MRF_R8(16), MRF_R8(24)
+                 : "l"(da), "l"(db), "r"(1));
   }
 };
 
 template <>
 struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(1));
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(MRF_WGMMA_OPEN(128, 66)
+                 "%0, %1, %2, %3, %4, %5, %6, %7, "
+                 "%8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, "
+                 "%24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35, %36, %37, %38, %39, "
+                 "%40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, "
+                 "%56, %57, %58, %59, %60, %61, %62, %63"
+                 MRF_WGMMA_CLOSE(64, 65)
+                 : MRF_R8(0), MRF_R8(8), MRF_R8(16), MRF_R8(24),
+                   MRF_R8(32), MRF_R8(40), MRF_R8(48), MRF_R8(56)
+                 : "l"(da), "l"(db), "r"(1));
   }
 };
 
@@ -406,7 +437,6 @@ struct WgConv {
   float* sum;         // conv2 on a ResBlock's last pair: the f32 ResBlock
                       // sum (B, C, L); else null
   int C, Cp, L, k, d;
-  int cw;             // input channels a window chunk (a multiple of 16)
   int first, last, nblk;
   int n_m;            // position tiles a batch row
   int total;          // position tiles in all: n_m B
@@ -430,8 +460,8 @@ __device__ __forceinline__ void epilogue(const WgConv& a,
                                          unsigned char* tile_mem,
                                          const unsigned char* y_mem, int b,
                                          int p0, int nb) {
-  constexpr int BM = 64 * MT * kConsumerWGs;
-  constexpr int TS = BN + 8;
+  constexpr int BM = wg_bm(BN);
+  constexpr int TS = BN + kRowPad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, g = lane >> 2, q = lane & 3;
   const int L = a.L, Cp = a.Cp;
@@ -532,25 +562,33 @@ __device__ __forceinline__ void epilogue(const WgConv& a,
 // set, into the ResBlock sum.  Grid: (Cp / BN, blocks, 1); block y takes
 // position tiles y, y + gridDim.y, ... of the B n_m.
 template <int BN, bool CONV1>
-__global__ void __launch_bounds__(kWgThreads, 1)
-mrf_conv_wg_kernel(const WgConv a) {
+__global__ void __launch_bounds__(kWgThreads, wg_min_blocks(BN))
+mrf_conv_wg_kernel(const WgConv a, const __grid_constant__ CUtensorMap src) {
   constexpr int MT = wg_mt(BN);               // m64 tiles a warpgroup
-  constexpr int BM = 64 * MT * kConsumerWGs;  // positions a tile
+  constexpr int BM = wg_bm(BN);               // positions a tile
   constexpr int kTile = tile_bytes(BN);
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t raw = smem_u32(smem);
   const uint32_t ring = (raw + kAlign - 1) & ~(uint32_t)(kAlign - 1);
   const int Cp = a.Cp, L = a.L, k = a.k, d = a.d;
-  const int rowb = (Cp + kRowPad) * 2;        // bytes a window row
-  const int rows = BM + (k - 1) * d;
+  const int cw = wg_cw(Cp);
+  const int ppc = cw / 8;                     // window planes a chunk
+  const int box = box_rows(BN, k, d);         // rows a tensor copy
+  const int nbox = win_boxes(BN, k, d);       // tensor copies a plane
+  const int pstride = 16 * nbox * box;        // bytes a plane
   const uint32_t win0 = ring + kStages * kTile;
   const int slot_b = slot_bytes(BN, Cp, k, d, CONV1);
+  const int area = slot_b - (CONV1 ? 0 : tile_rows_bytes(BN));
   const uint32_t full = win0 + (a.persist ? 2 : 1) * slot_b;
   const uint32_t empty = full + 8 * kStages;  // kStages barriers each
+  // window slot s: chunk c lands on wfull + 8 (kMaxChunks s + c); the
+  // consumers release the slot on wempty + 8 s
+  const uint32_t wfull = empty + 8 * kStages;
+  const uint32_t wempty = wfull + 8 * 2 * kMaxChunks;
   const int nb = blockIdx.x;
-  const int spt = a.cw / 16;                  // k-steps a tap of a chunk
+  const int spt = cw / 16;                    // k-steps a tap of a chunk
   const int spc = k * spt;                    // k-steps a chunk
-  const int nchunk = Cp / a.cw;
+  const int nchunk = Cp / cw;
   const int steps = nchunk * spc;
   const int tiles = (steps + 3) / 4;          // weight tiles a position tile
   const int iters = (a.total - blockIdx.y + gridDim.y - 1) / gridDim.y;
@@ -561,15 +599,21 @@ mrf_conv_wg_kernel(const WgConv a) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 4 * kConsumerWGs);
     }
+    for (int s = 0; s < 2; ++s) {
+      for (int c = 0; c < kMaxChunks; ++c) {
+        mbar_init(wfull + 8 * (kMaxChunks * s + c), 1);
+      }
+      mbar_init(wempty + 8 * s, 4 * kConsumerWGs);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp == 4 * kConsumerWGs) {
-    // the producer: weight tile n = it tiles + i of this block's output
-    // channels into slot n % kStages, once the consumers have released the
-    // slot's last use
     if (lane == 0) {
+      // weight tile n = it tiles + i of this block's output channels into
+      // ring slot n % kStages, once the consumers have released the slot's
+      // last use
       const unsigned char* w = static_cast<const unsigned char*>(a.w) +
                                (size_t)nb * tiles * kTile;
       for (int n = 0; n < iters * tiles; ++n) {
@@ -578,62 +622,94 @@ mrf_conv_wg_kernel(const WgConv a) {
         mbar_expect_tx(full + 8 * s, kTile);
         bulk_g2s(ring + s * kTile, w + (size_t)i * kTile, kTile, full + 8 * s);
       }
+    } else if (lane == 1) {
+      // the window of position tile it into its slot, once the consumers
+      // have released the slot's last use: each 8-channel plane of a chunk
+      // as nbox tensor copies of box rows (window row r is position p0 -
+      // half d + r of its batch row; the map fills zeros outside [0, L)),
+      // the chunk's copies completing on its barrier
+      for (int it = 0; it < iters; ++it) {
+        const int s = a.persist ? it & 1 : 0;
+        const int use = a.persist ? it >> 1 : it;  // the slot's earlier uses
+        mbar_wait(wempty + 8 * s, (use & 1) ^ 1);
+        const int t = blockIdx.y + it * gridDim.y;
+        const int b = t / a.n_m;
+        const int g_lo = (t - b * a.n_m) * BM - (k - 1) / 2 * d;
+        const uint32_t wa = win0 + s * slot_b;
+        for (int c = 0; c < nchunk; ++c) {
+          const uint32_t bar = wfull + 8 * (kMaxChunks * s + c);
+          mbar_expect_tx(bar, ppc * nbox * box * 16);
+          for (int v = 0; v < ppc; ++v) {
+            for (int q = 0; q < nbox; ++q) {
+              tma_load_3d(wa + (c * ppc + v) * pstride + q * box * 16, &src,
+                          c * cw + 8 * v, g_lo + q * box, b, bar);
+            }
+          }
+        }
+      }
     }
     return;
   }
 
-  // the window slot of position tile t at wa: window row r is position
-  // p0 - half d + r of its batch row, zero outside [0, L); one commit group
-  // an input-channel chunk; for conv2, the residual rows [p0, p0 + BM) of
-  // the block's channels ride in the last chunk's group
-  const int vsh = a.cw == 64 ? 3 : a.cw == 32 ? 2 : 1;  // log2 copies a row
-  auto load_window = [&](int t, uint32_t wa) {
-    const int b = t / a.n_m;
-    const int p0 = (t - b * a.n_m) * BM;
-    const bf16* src = a.src + (size_t)b * L * Cp;
-    const int g_lo = p0 - (k - 1) / 2 * d;
-    for (int c = 0; c < nchunk; ++c) {
-      for (int i = threadIdx.x; i < rows << vsh; i += kConsumers) {
-        const int r = i >> vsh;
-        const int ch = c * a.cw + 8 * (i - (r << vsh));
-        const int g = g_lo + r;
-        const bool ok = g >= 0 && g < L;
-        cp_async16(wa + r * rowb + 2 * ch, src + (size_t)(ok ? g : 0) * Cp + ch,
-                   ok);
+  // conv2's residual rows [p0, p0 + BM) of the block's channels for
+  // position tile t, beside the window of the slot at wa: one commit group
+  auto load_residual = [&](int t, uint32_t wa) {
+    if (!CONV1) {
+      const int b = t / a.n_m;
+      const int p0 = (t - b * a.n_m) * BM;
+      const bf16* yin = a.yin + (size_t)b * L * Cp + nb * BN;
+      for (int i = threadIdx.x; i < BM * (BN / 8); i += kConsumers) {
+        const int r = i / (BN / 8), v = i - r * (BN / 8);
+        const bool ok = p0 + r < L;
+        cp_async16(wa + area + r * (BN + kRowPad) * 2 + 16 * v,
+                   yin + (size_t)(ok ? p0 + r : 0) * Cp + 8 * v, ok);
       }
-      if (!CONV1 && c == nchunk - 1) {
-        const bf16* yin = a.yin + (size_t)b * L * Cp + nb * BN;
-        const uint32_t ya = wa + rows * rowb;
-        for (int i = threadIdx.x; i < BM * (BN / 8); i += kConsumers) {
-          const int r = i / (BN / 8), v = i - r * (BN / 8);
-          const bool ok = p0 + r < L;
-          cp_async16(ya + r * (BN + 8) * 2 + 16 * v,
-                     yin + (size_t)(ok ? p0 + r : 0) * Cp + 8 * v, ok);
-        }
+    }
+    cp_async_commit();
+  };
+  // chunk c of the window at wa, for the MMAs: every consumer waits for the
+  // chunk's copies (phase `parity` of its barrier); conv1 replaces each of
+  // its elements by bf16(lrelu(.)) in place, a thread an element of 8 at a
+  // time, and a proxy fence and the consumers' barrier hand the chunk to
+  // the async proxy that wgmma reads through
+  auto chunk_ready = [&](uint32_t wa, int c, uint32_t bar, int parity) {
+    mbar_wait(bar, parity);
+    if (CONV1) {
+      const uint32_t base = wa + c * ppc * pstride;
+      for (int i = threadIdx.x; i < ppc * nbox * box; i += kConsumers) {
+        uint4* e = reinterpret_cast<uint4*>(smem + (base - raw) + 16 * i);
+        uint4 u = *e;
+        u.x = lrelu2(u.x);
+        u.y = lrelu2(u.y);
+        u.z = lrelu2(u.z);
+        u.w = lrelu2(u.w);
+        *e = u;
       }
-      cp_async_commit();
+      fence_proxy_async();
+      consumer_sync();
     }
   };
 
-  const int wg = warp >> 2;
-  // this lane's ldmatrix.x4 row: lanes 0-15 rows 0-15 of the warp's m16
-  // slice at channels +0, lanes 16-31 the same rows at +8
-  const uint32_t a_row = (wg * 64 * MT + (warp & 3) * 16 + (lane & 15)) *
-                         rowb + (lane >> 4) * 16;
-  load_window(blockIdx.y, win0);
+  // this warpgroup's A: window rows wg 64 MT + 64 m + tap d on, for m64
+  // tile m; the descriptor's fields but its start address
+  const uint32_t a_row = 16 * (warp >> 2) * 64 * MT;
+  const uint64_t a_fields = a_desc(0, pstride);
+  if (a.persist) load_residual(blockIdx.y, win0);
   for (int it = 0; it < iters; ++it) {
     const int t = blockIdx.y + it * gridDim.y;
     const int b = t / a.n_m;
     const int p0 = (t - b * a.n_m) * BM;
-    const uint32_t win = win0 + (a.persist ? (it & 1) * slot_b : 0);
-    if (a.persist) {              // the next tile's window: nchunk groups
-      if (it + 1 < iters) {
-        load_window(t + gridDim.y, win0 + ((it + 1) & 1) * slot_b);
-      } else {
-        for (int c = 0; c < nchunk; ++c) cp_async_commit();
-      }
-    } else if (it > 0) {
-      load_window(t, win0);
+    const int s = a.persist ? it & 1 : 0;
+    const int parity = (a.persist ? it >> 1 : it) & 1;
+    const uint32_t win = win0 + s * slot_b;
+    // the residual rows: a persistent block's of the next tile, one
+    // group a tile (empty past the last), else this tile's
+    if (!a.persist) {
+      load_residual(t, win0);
+    } else if (it + 1 < iters) {
+      load_residual(t + gridDim.y, win0 + ((it + 1) & 1) * slot_b);
+    } else {
+      cp_async_commit();
     }
     float acc[MT][BN / 2];
 #pragma unroll
@@ -642,41 +718,41 @@ mrf_conv_wg_kernel(const WgConv a) {
       for (int i = 0; i < BN / 2; ++i) acc[m][i] = 0.f;
       fence_regs(acc[m]);
     }
-    // a weight tile at a time: its 4 steps' A fragments into registers (a
-    // padding step past the last one re-reads that step's rows: its
-    // weights are zero), then its 4 MT MMAs in one commit group.  ptxas
-    // serialises wgmma when registers feeding one are written while an
-    // earlier one is in flight, so a warpgroup waits for its group before
-    // loading the next tile's A; the other consumer warpgroup's MMAs fill
-    // the tensor cores meanwhile.
-    // k-step s = 4 tile + jj walks chunk c, tap, 16 channels j in order,
-    // by counters (a division a step would cost more than its MMAs)
-    int c = 0, tap = 0, j = 0;
+    // a weight tile at a time: its 4 steps' 4 MT MMAs in one commit group
+    // (a padding step past the last one re-reads that step's rows: its
+    // weights are zero), then a wait until kMmaGroups groups are left in
+    // flight, and the slots of the groups that completed go back to the
+    // producer (rel: this position tile's tiles released).  Before a tile
+    // whose steps reach a chunk not yet handed over, the warpgroup lets
+    // its MMAs finish and readies the chunks (conv1's lrelu pass is a
+    // divergent path, and ptxas serialises wgmma across one taken with
+    // MMAs in flight).  k-step s = 4 tile + jj walks chunk c, tap, 16
+    // channels j in order, by counters
+    int c = 0, tap = 0, j = 0, ready = -1, rel = 0;
     for (int tile = 0; tile < tiles; ++tile) {
       const int n = it * tiles + tile, slot = n % kStages;
-      uint32_t af[4][MT][4];
+      const int last = min(4 * tile + 3, steps - 1);  // its last real step
+      if (last >= (ready + 1) * spc) {
+        wg_wait<0>();
+        for (; rel < tile; ++rel) {
+          mbar_arrive_if(empty + 8 * ((it * tiles + rel) % kStages),
+                         lane == 0);
+        }
+        while (ready < last / spc) {
+          ++ready;
+          chunk_ready(win, ready, wfull + 8 * (kMaxChunks * s + ready),
+                      parity);
+        }
+      }
+      uint32_t addr[4];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const int s = 4 * tile + jj;
-        if (s < steps && tap == 0 && j == 0) {  // chunk c has landed
-          cp_async_wait(nchunk - 1 - c + (a.persist ? nchunk : 0));
-          consumer_sync();
-        }
-        const uint32_t addr =
-            win + a_row + tap * d * rowb + 2 * (c * a.cw + 16 * j);
-        if (s + 1 < steps && ++j == spt) {  // else: padding steps re-read
+        addr[jj] = win + (c * ppc + 2 * j) * pstride + a_row + 16 * tap * d;
+        if (4 * tile + jj + 1 < steps && ++j == spt) {  // else: re-read
           j = 0;
           if (++tap == k) {
             tap = 0;
             ++c;
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          ldmatrix_x4(af[jj][m], addr + m * 64 * rowb);
-          if (CONV1) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) af[jj][m][e] = lrelu2(af[jj][m][e]);
           }
         }
       }
@@ -684,19 +760,35 @@ mrf_conv_wg_kernel(const WgConv a) {
       wg_fence();
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const uint64_t desc = b_desc(ring + slot * kTile + 32 * jj);
+        const uint64_t db = b_desc(ring + slot * kTile + 32 * jj);
 #pragma unroll
-        for (int m = 0; m < MT; ++m) Wgmma<BN>::mma(acc[m], af[jj][m], desc);
+        for (int m = 0; m < MT; ++m) {
+          const uint64_t da = a_fields | ((addr[jj] + 1024 * m) >> 4);
+          Wgmma<BN>::mma(acc[m], da, db);
+        }
       }
       wg_commit();
-      wg_wait<0>();
-      if (lane == 0) mbar_arrive(empty + 8 * slot);   // the slot is free
+      wg_wait<kMmaGroups>();
+      for (; rel <= tile - kMmaGroups; ++rel) {  // those groups are done
+        mbar_arrive_if(empty + 8 * ((it * tiles + rel) % kStages), lane == 0);
+      }
+    }
+    wg_wait<0>();
+    for (; rel < tiles; ++rel) {
+      mbar_arrive_if(empty + 8 * ((it * tiles + rel) % kStages), lane == 0);
+    }
+    if (a.persist) {              // this tile's residual rows
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
 #pragma unroll
     for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
     epilogue<BN, MT, CONV1>(a, acc, smem + (win - raw),
-                            smem + (win - raw) + rows * rowb, b, p0, nb);
+                            smem + (win - raw) + area, b, p0, nb);
+    fence_proxy_async();          // before the next window's copies
     consumer_sync();              // the window is free for the next load
+    mbar_arrive_if(wempty + 8 * s, lane == 0);
   }
 }
 
@@ -755,6 +847,22 @@ mrf_head_wg_kernel(const float* s, const bf16* w_post, const float* b_post,
   if (p < L) wav[(size_t)b * L + p] = tanhf(rnd(acc + b_post[0]));
 }
 
+// the driver's cuTensorMapEncodeTiled, found through the runtime once (the
+// library links no driver library); null where the driver lacks it
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
 int sm_count() {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);
@@ -764,7 +872,7 @@ int sm_count() {
 
 template <int BN, bool CONV1>
 int launch_wg(const WgConv& a0, int B, int sms, cudaStream_t stream) {
-  constexpr int BM = 64 * wg_mt(BN) * kConsumerWGs;
+  constexpr int BM = wg_bm(BN);
   WgConv a = a0;
   a.n_m = (a.L + BM - 1) / BM;
   a.total = a.n_m * B;
@@ -784,8 +892,26 @@ int launch_wg(const WgConv& a0, int B, int sms, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     blocks = std::min(blocks, std::max(per_sm, 1) * sms);
   }
+  // the window's source [B][L][Cp] bf16 as a tensor map: boxes of 8
+  // channels x box_rows positions x 1 batch row, zeros outside
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)a.Cp, (cuuint64_t)a.L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)a.Cp * 2,
+                                 (cuuint64_t)a.L * a.Cp * 2};
+  const cuuint32_t box[3] = {8, (cuuint32_t)box_rows(BN, a.k, a.d), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<bf16*>(a.src), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return (int)cudaErrorInvalidValue;
+  }
   const dim3 grid(a.Cp / BN, blocks, 1);
-  mrf_conv_wg_kernel<BN, CONV1><<<grid, kWgThreads, smem, stream>>>(a);
+  mrf_conv_wg_kernel<BN, CONV1><<<grid, kWgThreads, smem, stream>>>(a, map);
   return (int)cudaGetLastError();
 }
 
@@ -817,7 +943,8 @@ extern "C" int mrf_stage_bf16(const float* x, float* out, const void* w,
   using namespace mrf;
   const bool head = w_post != nullptr;
   const int Cp = (C + 15) / 16 * 16;
-  if (C < 1 || C % 8 != 0 || nblk < 1 || npair < 1 || y0 == nullptr ||
+  if (C < 1 || C % 8 != 0 || Cp / wg_cw(Cp) > kMaxChunks || nblk < 1 ||
+      npair < 1 || y0 == nullptr ||
       h == nullptr || (npair > 1 && y == nullptr) ||
       (head && (s == nullptr || post_k < 1 || post_k > kMaxPostK))) {
     return (int)cudaErrorInvalidValue;
@@ -832,7 +959,6 @@ extern "C" int mrf_stage_bf16(const float* x, float* out, const void* w,
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   float* sum = head ? s : out;
-  const int cw = Cp % 64 == 0 ? 64 : Cp % 32 == 0 ? 32 : 16;
   const bf16* wp = static_cast<const bf16*>(w);
   const float* bp = bias;
   for (int j = 0; j < nblk; ++j) {
@@ -842,7 +968,7 @@ extern "C" int mrf_stage_bf16(const float* x, float* out, const void* w,
     for (int p = 0; p < npair; ++p) {
       const bool last_pair = p == npair - 1;
       WgConv a = {};
-      a.C = C; a.Cp = Cp; a.L = L; a.k = k; a.cw = cw; a.nblk = nblk;
+      a.C = C; a.Cp = Cp; a.L = L; a.k = k; a.nblk = nblk;
       a.src = p == 0 ? rows0 : ry;
       a.w = wp; a.bias = bp; a.dst = rh; a.d = ds[p];
       err = launch_conv<true>(a, B, sms, st);

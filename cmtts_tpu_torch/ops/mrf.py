@@ -11,10 +11,13 @@ Counterparts of ``cmtts_tpu/ops/mrf_pallas.py``:
 Both launch the hand-written CUDA C++ for sm_90a in ``csrc/``.  In
 bfloat16 (the main path) ``mrf_stage_bf16`` of ``csrc/mrf_wg.cu``: a cast
 of x into position-major bf16 rows, then each of the stage's convs as one
-launch of a warpgroup implicit GEMM on the tensor cores (``wgmma`` with A
-from registers and B from weight tiles that a producer warp brings into a
-shared-memory ring by bulk async copies; :func:`pack_wg_tiles` lays the
-tiles out), then the head's kernel.  In float32 ``mrf_stage_f32`` of
+launch of a warpgroup implicit GEMM on the tensor cores (``wgmma`` with
+both operands read by descriptor from shared memory: A from the
+activation window, stored in planes of 8 channels that tensor copies of
+the producer warp bring in, so that one descriptor serves every tap; B
+from weight tiles that the same warp brings into a shared-memory ring by
+bulk async copies; :func:`pack_wg_tiles` lays the tiles out), then the
+head's kernel.  In float32 ``mrf_stage_f32`` of
 ``csrc/mrf.cu``: each conv is a launch of a SIMT implicit GEMM (strict
 float32 FMAs, register tiles of ``F32_TM`` x ``F32_TN``, K-chunks of
 ``F32_CHUNK`` input channels staged by ``cp.async`` in a ring of
@@ -36,6 +39,7 @@ CPU; for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -62,10 +66,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the bf16 conv's work split (csrc/mrf_wg.cu): consumer warpgroups a
 # block, K values a weight tile (one 128-byte swizzle row), weight tiles in
-# the ring, the widest block in output channels, bf16 pad of a window row,
-# the alignment of the ring's swizzle atoms
-WG_CONSUMERS, WG_TILE_K, WG_STAGES, WG_MAX_BN = 2, 64, 4, 128
-WG_ROW_PAD, WG_ALIGN = 8, 1024
+# the ring, MMA commit groups a warpgroup keeps in flight, the widest block
+# in output channels, bf16 pad of an epilogue tile's row, the alignment of
+# the ring's swizzle atoms
+WG_CONSUMERS, WG_TILE_K, WG_STAGES, WG_MMA_GROUPS = 2, 64, 4, 1
+WG_MAX_BN, WG_ROW_PAD, WG_ALIGN = 128, 8, 1024
+# rows a tensor copy of a window plane may have, window chunks a slot has
+# barriers for
+WG_MAX_BOX, WG_MAX_CHUNKS = 256, 8
 # threads of a float32 conv block (kThreads of csrc/mrf.cuh) in warps
 WARPS = 8
 # the float32 conv's work split (csrc/mrf.cu): a thread's register tile
@@ -233,25 +241,60 @@ def wg_tile_count(Cp: int, k: int) -> int:
 
 def wg_tiling(Cp: int):
     """(BN, MT) of a bf16 conv block: ``wg_block``, and MT m64 tiles a
-    consumer warpgroup, 1 at BN = ``WG_MAX_BN`` (64 accumulators a thread
-    an m64 tile: MT = 2 would not leave ptxas the registers to keep a
-    tile's MMAs in flight), else 2.  A block's position tile is BM = 64 MT
-    ``WG_CONSUMERS``."""
+    consumer warpgroup, 1 at BN >= 64 (at BN = 128, 64 accumulators a
+    thread an m64 tile, MT = 2 spills; at BN = 64 MT = 1 lets an SM hold
+    two blocks, see ``wg_min_blocks`` in csrc/mrf_wg.cu), else 2.  A
+    block's position tile is BM = 64 MT ``WG_CONSUMERS``."""
     bn = wg_block(Cp)
-    return bn, 1 if bn == WG_MAX_BN else 2
+    return bn, 1 if bn >= 64 else 2
 
 
-def wg_smem_bytes(Cp: int, k: int, d: int, conv1: bool) -> int:
-    """Shared memory of a bf16 conv block with one window slot, the least
-    that ``launch_wg`` in csrc/mrf_wg.cu asks for (it takes a second slot,
-    and makes its blocks persistent, where two fit): alignment slack, the
-    ring of ``WG_STAGES`` weight tiles, the window [BM + (k - 1) d][Cp + 8]
-    with, for conv2, its residual rows [BM][BN + 8], the barriers."""
+def wg_window_boxes(Cp: int, k: int, d: int):
+    """(copies, rows a copy) of one 8-channel plane of the bf16 conv's
+    window: its BM + (k - 1) d positions in as few tensor copies of at
+    most ``WG_MAX_BOX`` rows as hold them, the rows rounded up to 8 so that
+    every copy lands 128-byte aligned (``win_boxes`` and ``box_rows`` in
+    csrc/mrf_wg.cu)."""
+    _, mt = wg_tiling(Cp)
+    rows = 64 * mt * WG_CONSUMERS + (k - 1) * d
+    n = -(-rows // WG_MAX_BOX)
+    return n, -(-(-(-rows // n)) // 8) * 8
+
+
+def wg_window_rows(Cp: int, k: int, d: int) -> int:
+    """Rows of one 8-channel plane of the bf16 conv's window: its copies'
+    (``win_rows`` in csrc/mrf_wg.cu)."""
+    n, box = wg_window_boxes(Cp, k, d)
+    return n * box
+
+
+def wg_smem_bytes(Cp: int, k: int, d: int, conv1: bool,
+                  slots: int = 1) -> int:
+    """Shared memory of a bf16 conv block with ``slots`` window slots, as
+    ``wg_smem_bytes`` in csrc/mrf_wg.cu adds it up: alignment slack, the
+    ring of ``WG_STAGES`` weight tiles, each slot's window [Cp / 8]
+    [:func:`wg_window_rows`][8] (or the epilogue's tile [BM][BN + 8] that
+    it later holds, where that is larger) with, for conv2, the residual
+    rows [BM][BN + 8] beside it, the barriers (the ring's, and each slot's
+    ``WG_MAX_CHUNKS`` chunk barriers and its empty barrier).  ``launch_wg``
+    takes two slots, and makes its blocks persistent, where two fit."""
     bn, mt = wg_tiling(Cp)
-    bm = 64 * mt * WG_CONSUMERS
-    slot = ((bm + (k - 1) * d) * (Cp + WG_ROW_PAD) * 2
-            + (0 if conv1 else bm * (bn + WG_ROW_PAD) * 2))
-    return WG_ALIGN + WG_STAGES * bn * WG_TILE_K * 2 + slot + 2 * WG_STAGES * 8
+    tile = 64 * mt * WG_CONSUMERS * (bn + WG_ROW_PAD) * 2
+    slot = (max(Cp * wg_window_rows(Cp, k, d) * 2, tile)
+            + (0 if conv1 else tile))
+    return (WG_ALIGN + WG_STAGES * bn * WG_TILE_K * 2 + slots * slot
+            + (2 * WG_STAGES + 2 * WG_MAX_CHUNKS + 2) * 8)
+
+
+@functools.lru_cache(maxsize=64)
+def wg_two_slot_convs(Cp: int, kernel_sizes: tuple, dilations: tuple) -> int:
+    """How many of a stage's conv launches take two window slots (their
+    blocks load the next tile's window under this tile's MMAs): the
+    convs whose two slots fit, by ``launch_wg``'s rule.  Cached: each
+    launch counts it."""
+    return sum((wg_smem_bytes(Cp, k, d, True, 2) <= SMEM_LIMIT)
+               + (wg_smem_bytes(Cp, k, 1, False, 2) <= SMEM_LIMIT)
+               for k in kernel_sizes for d in dilations)
 
 
 def wg_tile_order(Cp: int, k: int) -> torch.Tensor:
@@ -307,6 +350,16 @@ def wg_desc(addr: int) -> int:
     >> 4 in bits 32-45, swizzle mode 1 (128 bytes) in bits 62-63."""
     return (((addr & 0x3FFFF) >> 4) | (1 << 16) | ((1024 >> 4) << 32)
             | (1 << 62))
+
+
+def wg_a_desc(addr: int, lbo: int) -> int:
+    """The kernel's wgmma descriptor of a K-major A slice of the window at
+    shared address ``addr`` (``a_desc`` in csrc/mrf_wg.cu): start >> 4 in
+    bits 0-13, LBO = ``lbo`` (the plane stride between the step's two
+    8-channel halves) >> 4 in bits 16-29, SBO 128 bytes (between
+    8-position core matrices) >> 4 in bits 32-45, no swizzle (mode 0)."""
+    return (((addr & 0x3FFFF) >> 4) | (((lbo >> 4) & 0x3FFF) << 16)
+            | ((128 >> 4) << 32))
 
 
 def pack_post_params(generator, dtype=torch.float32):
@@ -409,6 +462,8 @@ def kernel_takes(C: int, compute_dtype, kernel_sizes=(3, 7, 11),
         return False
     if compute_dtype == torch.bfloat16:
         Cp = padded_channels(C)
+        if Cp // wg_chunk(Cp) > WG_MAX_CHUNKS:
+            return False
         return all(wg_smem_bytes(Cp, k, d, True) <= SMEM_LIMIT
                    and wg_smem_bytes(Cp, k, 1, False) <= SMEM_LIMIT
                    for k in kernel_sizes for d in dilations)
@@ -491,6 +546,10 @@ def _launch(x, packed, kernel_sizes, dilations, compute_dtype, post):
             stream)
     if err != 0:
         raise RuntimeError(f"MRF stage launch failed: cudaError_t {err}")
+    if bf16:
+        count("mrf.wg_convs", n_conv)
+        count("mrf.wg_convs_two_slot",
+              wg_two_slot_convs(Cp, tuple(kernel_sizes), tuple(dilations)))
     return out
 
 

@@ -1,9 +1,13 @@
 """The bf16 MRF route (cmtts_tpu_torch/csrc/mrf_wg.cu) on the CPU: its B-tile
-packer, an emulation of the wgmma shared-memory descriptor reading the
-tiles back, an emulation of one conv launch that follows the kernel's lane
--> (row, column) mappings exactly (ldmatrix.x4 rows at the tap's offset in
-the zero-filled window, the m16n8k16 A fragment of each warp, the m64
-accumulator layout, the fused epilogue), the whole stage through that
+packer, emulations of the wgmma shared-memory descriptors (B: the weight
+tiles with the 128-byte swizzle; A: the activation window in planes of 8
+channels, no swizzle, a tap's shift on the start address) reading their
+operands back, the window's tensor copies tiling each plane and the
+barrier and cp.async-group protocol around them, an emulation of one conv
+launch that follows the kernel's addresses and lane -> (row, column)
+mappings exactly (the window built by its tensor copies, conv1's lrelu
+once per element, A and B by descriptor, the m64 accumulator layout, the
+fused epilogue), the whole stage through that
 emulation with every buffer NaN where no launch has written it, the
 padded V2 stage, the work-split constants, and the library build's
 stale/fresh decision.  The kernel itself runs only on the card
@@ -51,29 +55,78 @@ def lrelu(v, s=0.1):
 
 # -- the kernel's operands, lane by lane --------------------------------------
 
-# PTX's m16n8k16 A fragment, which is also a warp's 16 rows of wgmma's A in
-# registers: register m of lane 4g + q holds (row, column) (g + 8 (m % 2),
-# 2q + 8 (m // 2) + h), h = 0, 1
-_R, _H = torch.arange(4)[None, :, None], torch.arange(2)[None, None, :]
-A_ROW = (G[:, None, None] + 8 * (_R % 2)).expand(32, 4, 2)
-A_COL = 2 * Q[:, None, None] + 8 * (_R // 2) + _H
+def window_copies(Cp, k, d):
+    """The producer's tensor copies of one window, in its order: for each
+    chunk, each 8-channel plane v, each box q of ``box`` rows: (chunk,
+    plane, first window row, byte offset in the slot).  A box is what a
+    copy of the conv input's tensor map writes: ``box`` positions x 8
+    channels, 16 bytes a position."""
+    cw = mrf.wg_chunk(Cp)
+    nbox, box = mrf.wg_window_boxes(Cp, k, d)
+    pstride = 16 * nbox * box
+    return [(c, c * cw // 8 + v, q * box, (c * cw // 8 + v) * pstride
+             + 16 * q * box)
+            for c in range(Cp // cw) for v in range(cw // 8)
+            for q in range(nbox)]
 
 
-def ldmatrix_x4(flat, addr):
-    """ldmatrix.x4 on bf16 buffers ``flat`` (blocks, n): lane l gives the
-    element offset ``addr[..., l]`` of an 8-element row; lanes 8m..8m+7
-    give the rows of matrix m.  Returns regs (blocks, ..., 32, 4, 2): lane
-    L's register m holds matrix m's row L // 4, elements 2 (L % 4) + h."""
-    mats = flat[:, addr[..., None] + torch.arange(8)].unflatten(-2, (4, 8))
-    return mats[..., _R, (LANE // 4)[:, None, None],
-                (2 * (LANE % 4))[:, None, None] + _H]
+def window_slots(src, Cp, k, d, p0s, conv1):
+    """The window slots of position tiles starting at ``p0s`` (one per
+    (batch row, tile)), bf16 [Cp / 8][rows][8] flattened, built by the
+    copies of :func:`window_copies`: window row r of a box is position
+    p0 - half d + r of its batch row, zeros outside [0, L) as the tensor
+    map fills them (rows past BM + (k - 1) d included, as the last box
+    reaches them); conv1's pass then replaces every element of the planes
+    by bf16(lrelu(.)), once."""
+    B, L, _ = src.shape
+    half = (k - 1) // 2
+    nbox, box = mrf.wg_window_boxes(Cp, k, d)
+    slot = torch.full((B, len(p0s), Cp // 8 * nbox * box * 8), NAN)
+    xpad = F.pad(src.float(), (0, 0, 1024, 1024))       # zeros outside
+    for _, plane, r0, off in window_copies(Cp, k, d):
+        g = torch.tensor(p0s)[:, None] - half * d + r0 + torch.arange(box)
+        vals = xpad[:, g + 1024][..., 8 * plane: 8 * plane + 8]
+        slot[..., off // 2: off // 2 + 8 * box] = vals.flatten(-2)
+    if conv1:
+        slot = rnd(lrelu(slot))
+    return slot
 
 
-def a_matrix(regs):
-    """The 16 x 16 A tiles the registers (..., 32, 4, 2) stand for."""
-    A = torch.full(regs.shape[:-3] + (16, 16), NAN)
-    A[..., A_ROW, A_COL] = regs
-    return A
+WIN = 5 * mrf.WG_ALIGN           # a window slot's shared address
+A_ROWS = torch.arange(64)[:, None]
+A_KK = torch.arange(16)[None, :]
+
+
+def a_desc_read(slot, desc):
+    """wgmma's A operand (64 x 16, M x K) as the descriptor ``desc`` reads
+    it from the window slot(s) ``slot`` (..., bf16 elements from shared
+    address WIN): K-major without swizzle, element (row, kk) at start +
+    (row / 8) SBO + (row % 8) 16 + (kk / 8) LBO + 2 (kk % 8)."""
+    assert desc >> 62 == 0 and (desc >> 49) & 7 == 0      # no swizzle
+    start = (desc & 0x3FFF) << 4
+    lbo = ((desc >> 16) & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    addr = (start + (A_ROWS // 8) * sbo + (A_ROWS % 8) * 16
+            + (A_KK // 8) * lbo + 2 * (A_KK % 8))
+    return slot[..., (addr - WIN) // 2]
+
+
+def a_step(slot, Cp, k, d, s):
+    """The BM x 16 A of k-step s for the whole tile: each consumer
+    warpgroup wg's MT m64 tiles, read through the descriptors the kernel
+    builds (window rows wg 64 MT + 64 m + tap d on, planes ci0 / 8 and the
+    next); a padding step past the last re-reads the last step's rows."""
+    steps = mrf.wg_steps(Cp, k)
+    t, ci0 = steps[min(s, len(steps) - 1)]
+    _, mt = mrf.wg_tiling(Cp)
+    pstride = 16 * mrf.wg_window_rows(Cp, k, d)
+    parts = []
+    for wg in range(mrf.WG_CONSUMERS):
+        for m in range(mt):
+            addr = (WIN + ci0 // 8 * pstride
+                    + 16 * (wg * 64 * mt + 64 * m + t * d))
+            parts.append(a_desc_read(slot, mrf.wg_a_desc(addr, pstride)))
+    return torch.cat(parts, -2)
 
 
 def desc_read(smem, desc, n):
@@ -107,52 +160,38 @@ def emulate_conv_wg(src, tiles, bias, C, L, k, d, conv1, dst, yin=None,
                     sum_=None, first=True, last=True, nblk=1):
     """``mrf_conv_wg_kernel`` on the CPU for every block of one launch:
     src [B][L][Cp] bf16, ``tiles`` this conv's packed B tiles, bias [Cp];
-    writes ``dst`` ([B][L][Cp] bf16) and ``sum_`` ((B, C, L) f32) in place
-    as the epilogue does: registers -> the [BM][BN + 8] tile over the
-    window -> 16-byte chunks of rows (conv2 adds its residual rows, which
-    the kernel fetches into shared memory beside the window) -> the sum by
-    (channel, position).  The order in which blocks walk the position
-    tiles does not change what they write."""
+    the window slots built by the kernel's copies (conv1: lrelu in place),
+    each k-step's A and B read by its descriptors; writes ``dst``
+    ([B][L][Cp] bf16) and ``sum_`` ((B, C, L) f32) in place as the
+    epilogue does: registers -> the [BM][BN + 8] tile over the window ->
+    16-byte chunks of rows (conv2 adds its residual rows, which the kernel
+    fetches into shared memory beside the window) -> the sum by (channel,
+    position).  The order in which blocks walk the position tiles does not
+    change what they write."""
     B, _, Cp = src.shape
     bn, mt = mrf.wg_tiling(Cp)
     bm = 128 * mt
-    half = (k - 1) // 2
-    rows, rowp = bm + (k - 1) * d, Cp + mrf.WG_ROW_PAD
-    steps = mrf.wg_steps(Cp, k)
     n_m = -(-L // bm)
-    # the windows of every (batch row, position tile): zero outside [0, L),
-    # NaN in the row pad (never read)
-    g = torch.arange(n_m)[:, None] * bm - half * d + torch.arange(rows)
-    ok = (g >= 0) & (g < L)
-    win = torch.full((B, n_m, rows, rowp), NAN)
-    win[..., :Cp] = torch.where(ok[None, :, :, None],
-                                src.float()[:, g.clamp(0, L - 1)],
-                                torch.zeros(()))
-    flat = win.reshape(B * n_m, rows * rowp)
-    # lane addresses of (warpgroup, m64 tile, warp): rows 16 warp + lane % 16,
-    # columns 8 (lane / 16)
+    # the window slots of every (batch row, position tile), conv1's lrelu
+    # applied once an element
+    flat = window_slots(src, Cp, k, d, [mb * bm for mb in range(n_m)],
+                        conv1).reshape(B * n_m, -1)
+    # the accumulator registers' rows and columns: d[4i + 2r + e] at row
+    # 16 warp + g + 8 r, column 8 i + 2 q + e, of (warpgroup, m64 tile, warp)
     wg, m, w = torch.meshgrid(torch.arange(2), torch.arange(mt),
                               torch.arange(4), indexing="ij")
-    row0 = (wg * 64 * mt + m * 64 + w * 16)[..., None] + LANE % 16
-    a_lane = row0 * rowp + (LANE // 16) * 8                 # (2, mt, 4, 32)
-    # the accumulator registers' rows and columns: d[4i + 2r + e] at row
-    # 16 warp + g + 8 r, column 8 i + 2 q + e
     reg = torch.arange(bn // 2)
     i_, r_, e_ = reg // 4, reg % 4 // 2, reg % 2
     # (2, mt, 4, 32, bn / 2)
-    acc_row = (row0 - LANE % 16)[..., None] + G[:, None] + 8 * r_
+    acc_row = ((wg * 64 * mt + m * 64 + w * 16)[..., None, None]
+               + G[:, None] + 8 * r_)
     acc_col = (8 * i_ + e_)[None, :] + 2 * Q[:, None]
     for nb in range(Cp // bn):
         D = torch.zeros(B * n_m, bm, bn)
         # whole tiles of 4 steps: a padding step re-reads the last step's
         # rows, against zero weights
         for s in range(4 * mrf.wg_tile_count(Cp, k)):
-            t, ci0 = steps[min(s, len(steps) - 1)]
-            regs = ldmatrix_x4(flat, a_lane + t * d * rowp + ci0)
-            if conv1:
-                regs = rnd(lrelu(regs))
-            A = a_matrix(regs).reshape(B * n_m, bm, 16)
-            D += A @ b_matrix(tiles, Cp, k, nb, s)
+            D += a_step(flat, Cp, k, d, s) @ b_matrix(tiles, Cp, k, nb, s)
         col = acc_col.expand_as(acc_row)
         acc = D[:, acc_row, col]                            # the registers
         # the epilogue's tile over the window, [BM][BN + 8] bf16, written
@@ -332,15 +371,127 @@ def test_descriptor_reads_back_the_weights(C):
             assert torch.equal(B, want), (nb, s)
 
 
+@pytest.mark.parametrize("C", [16, 32, 64, 128, 256])
+def test_a_descriptor_reads_the_tap_shifted_rows(C):
+    """For every (C, k, d) of HiFi-GAN V1 (C = 256 to 32) and V2 (128 to
+    16, its C = 8 padded to 16), in a first, a middle and a ragged last
+    position tile, the A operand that each k-step's descriptors read from
+    the window the kernel's copies built is exactly the rows of
+    out[p, co] = sum_t sum_ci in[p + (t - half) d, ci] w[t][ci][co]:
+    in[p0 + row + (t - half) d, ci0 + kk], zero outside [0, L)."""
+    _, mt = mrf.wg_tiling(C)
+    bm = 128 * mt
+    L = 2 * bm + 37
+    g = torch.Generator().manual_seed(C)
+    src = torch.randn(1, L, C, generator=g).to(torch.bfloat16)
+    xpad = F.pad(src.float()[0], (0, 0, 64, 64 + bm))      # zero outside
+    for k in KS:
+        half = (k - 1) // 2
+        steps = mrf.wg_steps(C, k)
+        for d in DS:
+            p0s = [0, bm, 2 * bm]
+            slots = window_slots(src, C, k, d, p0s, False)[0]
+            for s, (t, ci0) in enumerate(steps):
+                A = a_step(slots, C, k, d, s)                # (3, bm, 16)
+                for n, p0 in enumerate(p0s):
+                    p = p0 + torch.arange(bm) + (t - half) * d + 64
+                    want = xpad[p][:, ci0: ci0 + 16]
+                    assert torch.equal(A[n], want), (k, d, s, p0)
+
+
+@pytest.mark.parametrize("C", [16, 32, 64, 128, 256])
+def test_window_copies_tile_each_plane(C):
+    """The window's tensor copies, at every (k, d): each of at most 256
+    rows (the box limit) and a multiple of 8, landing 128-byte aligned,
+    together covering the BM + (k - 1) d rows of every plane once; a
+    chunk's copies bring the bytes its barrier expects; the window and
+    the epilogue's tile fit the slot."""
+    bn, mt = mrf.wg_tiling(C)
+    cw = mrf.wg_chunk(C)
+    for k in KS:
+        for d in DS + (1,):
+            nbox, box = mrf.wg_window_boxes(C, k, d)
+            rows = 128 * mt + (k - 1) * d
+            assert box <= mrf.WG_MAX_BOX and box % 8 == 0
+            assert nbox * box >= rows > (nbox - 1) * box
+            assert nbox == -(-rows // mrf.WG_MAX_BOX)
+            copies = window_copies(C, k, d)
+            assert all(off % 128 == 0 for *_, off in copies)
+            offs = sorted(off for *_, off in copies)
+            assert offs == list(range(0, C * nbox * box * 2, 16 * box))
+            for c in range(C // cw):
+                got = sum(16 * box for cc, *_ in copies if cc == c)
+                assert got == cw // 8 * nbox * box * 16
+            assert mrf.wg_window_rows(C, k, d) == nbox * box
+
+
+@pytest.mark.parametrize("C", [16, 32, 64, 128, 256])
+def test_window_barriers_and_residual_groups(C):
+    """The kernel's window and residual protocol, replayed for a persistent
+    block of five position tiles (two slots) and a one-slot block of
+    three, at every k: the producer's copies of tile it wait on the slot's
+    empty barrier for parity (use & 1) ^ 1, which holds once the consumers
+    have released the slot `use` times; the consumers wait on a chunk's
+    barrier for parity use & 1, the phase those copies complete, and no
+    earlier phase has that parity since the last release; conv2's residual
+    rows are one cp.async group a tile, a tile ahead where persistent, and
+    wait_group 1 (persistent) or 0 before the epilogue leaves this tile's
+    group landed.  Each chunk is readied once a tile, in order."""
+    cw = mrf.wg_chunk(C)
+    nchunk = C // cw
+    for k in KS:
+        spc = k * (cw // 16)
+        steps = nchunk * spc
+        tiles = -(-steps // 4)
+        for persist, iters in ((True, 5), (False, 3)):
+            nslot = 2 if persist else 1
+            released = [0] * nslot             # completed empty phases
+            completed = [[] for _ in range(nslot)]  # tiles whose copies
+            groups = [0] if persist else []        # residual groups (tile)
+            for it in range(iters):
+                s_, use = (it % 2, it // 2) if persist else (0, it)
+                # producer: the slot's empty barrier, parity (use & 1) ^ 1
+                assert released[s_] >= use
+                completed[s_].append(it)           # phase `use` completes
+                # consumers: residual rows of the next tile (or this one)
+                if not persist:
+                    groups.append(it)
+                elif it + 1 < iters:
+                    groups.append(it + 1)
+                else:
+                    groups.append(None)
+                ready, seen = -1, []
+                for tile in range(tiles):
+                    last = min(4 * tile + 3, steps - 1)
+                    while ready < last // spc:
+                        ready += 1
+                        seen.append(ready)
+                    # the wait for parity use & 1 returns on phase `use`
+                    assert len(completed[s_]) - 1 == use
+                    assert completed[s_][use] == it
+                assert seen == list(range(nchunk))
+                pending = 1 if persist else 0
+                done = groups[:len(groups) - pending]
+                assert it in done
+                released[s_] += 1                  # after the epilogue
+
+
 def test_descriptor_fields():
-    """wg_desc: start >> 4, LBO 1, SBO 1024 >> 4, 128-byte swizzle; an
-    address past 256 KB wraps in the 18-bit shared window."""
+    """wg_desc: start >> 4, LBO 1, SBO 1024 >> 4, 128-byte swizzle;
+    wg_a_desc: start >> 4, LBO the plane stride >> 4, SBO 128 >> 4, no
+    swizzle; an address past 256 KB wraps in the 18-bit shared window."""
     d = mrf.wg_desc(0x12340)
     assert d & 0x3FFF == 0x1234
     assert (d >> 16) & 0x3FFF == 1
     assert (d >> 32) & 0x3FFF == 64
     assert (d >> 49) & 7 == 0 and d >> 62 == 1
     assert mrf.wg_desc(0x40000 + 0x400) & 0x3FFF == 0x40
+    a = mrf.wg_a_desc(0x12350, 16 * 179)
+    assert a & 0x3FFF == 0x1235
+    assert (a >> 16) & 0x3FFF == 179
+    assert (a >> 32) & 0x3FFF == 8
+    assert (a >> 49) & 7 == 0 and a >> 62 == 0
+    assert mrf.wg_a_desc(0x40000 + 0x410, 16) & 0x3FFF == 0x41
 
 
 # -- (c) one conv, lane by lane, against F.conv1d -----------------------------
@@ -394,20 +545,21 @@ def test_conv_emulation_matches_conv1d(k, d, C):
 
 @pytest.mark.parametrize("C,L,head", [
     (16, 40, True), (16, 300, False), (32, 50, False), (32, 300, True),
-    (8, 77, True), (128, 90, False)])
+    (8, 77, True), (128, 90, False), (64, 150, True)])
 def test_stage_emulation_matches_plain_bf16(C, L, head):
-    """The emulated bf16 route (y0, 18 conv launches, NaN wherever no
-    launch has written, the head kernel) against the plain bf16 stage at
+    """The emulated bf16 route (y0, 18 conv launches with A by descriptor
+    from the plane-major window, NaN wherever no launch has written, the
+    head kernel) against the plain bf16 stage at
     chip_smoke.py's kernel tolerance: L shorter than a block, a ragged
-    last tile, with and without the head, V2's padded C = 8 and a
-    C = 128 stage on m64 tiles of one a warpgroup (MT = 1)."""
+    last tile, with and without the head, V2's padded C = 8, and C = 64
+    and 128 stages on m64 tiles of one a warpgroup (MT = 1)."""
     gen = _Gen(C, seed=C + L)
     packed = mrf.pack_mrf_params(gen, 0, torch.bfloat16)
     post = mrf.pack_post_params(gen, torch.bfloat16) if head else None
     x = torch.from_numpy(
         np.random.RandomState(L).randn(2, C, L).astype(np.float32) * 0.3)
-    if C == 128:
-        assert mrf.wg_tiling(C) == (128, 1)
+    if C >= 64:
+        assert mrf.wg_tiling(C)[1] == 1
     with torch.no_grad():
         ref = mrf.fused_mrf_stage(x, packed, KS, DS, torch.bfloat16, post)
         out = emulate_stage_wg(x, packed, post)
@@ -442,30 +594,49 @@ def test_kernel_takes_bfloat16_shapes():
     assert not mrf.kernel_takes(32, bf, post_k=19)      # head taps staged
     assert not mrf.kernel_takes(256, bf, (11,), (40,))  # window too wide
     assert mrf.kernel_takes(64, bf, (11,), (40,))
+    assert not mrf.kernel_takes(200, bf)     # 13 chunks of 16: 8 barriers
 
 
 def test_tiling_and_shared_memory_of_the_main_path():
-    """BN, MT and a conv block's shared memory with one window slot (conv2
-    with its residual rows beside the window) against the 232,448 bytes a
-    block may use, as the source's header adds them up at C = 256, k = 11,
-    d = 5; every conv of the main path's widths fits."""
+    """BN, MT, the window's plane rows and a conv block's shared memory
+    with one window slot (conv2 with its residual rows beside the window),
+    against the 232,448 bytes a block may use, as the source's header adds
+    them up at C = 256, k = 11, d = 5; every conv of the main path's widths
+    fits, and the convs that take two slots."""
     assert [mrf.wg_tiling(C) for C in (256, 128, 64, 32, 16)] == [
-        (128, 1), (128, 1), (64, 2), (32, 2), (16, 2)]
+        (128, 1), (128, 1), (64, 1), (32, 2), (16, 2)]
     assert [mrf.wg_chunk(C) for C in (256, 128, 64, 32, 16)] == [
         64, 64, 64, 32, 16]
+    # BM + (k - 1) d rows in copies of at most 256 rows, 8-row multiples
+    assert [mrf.wg_window_boxes(C, 11, 5) for C in (256, 64, 32, 16)] == [
+        (1, 184), (1, 184), (2, 160), (2, 160)]
+    assert mrf.wg_window_rows(256, 3, 1) == 136
+    bars = (2 * 4 + 2 * mrf.WG_MAX_CHUNKS + 2) * 8
     assert mrf.wg_smem_bytes(256, 11, 5, True) == (
-        1024 + 4 * 16384 + 93984 + 64)
+        1024 + 4 * 16384 + 256 * 184 * 2 + bars) == 160976
     assert mrf.wg_smem_bytes(256, 11, 1, False) == (
-        1024 + 4 * 16384 + 138 * 528 + 128 * 136 * 2 + 64)
+        1024 + 4 * 16384 + 256 * 144 * 2 + 128 * 136 * 2 + bars)
     assert mrf.wg_smem_bytes(128, 11, 5, True) == (
-        1024 + 4 * 16384 + 48416 + 64)
+        1024 + 4 * 16384 + 128 * 184 * 2 + bars)
     assert mrf.wg_smem_bytes(64, 11, 5, True) == (
-        1024 + 4 * 8192 + 44064 + 64)
+        1024 + 4 * 8192 + 64 * 184 * 2 + bars)
+    # the window of 64 x 136 rows is smaller than the epilogue's tile
     assert mrf.wg_smem_bytes(64, 3, 1, False) == (
-        1024 + 4 * 8192 + 258 * 144 + 256 * 72 * 2 + 64)
+        1024 + 4 * 8192 + 2 * 128 * 72 * 2 + bars)
+    assert mrf.wg_smem_bytes(16, 3, 1, True, 2) == (
+        1024 + 4 * 2048 + 2 * 256 * 24 * 2 + bars)
     assert all(mrf.wg_smem_bytes(C, k, d, c1) <= mrf.SMEM_LIMIT
                for C in (256, 128, 64, 32, 16) for k in KS
                for d, c1 in ((1, True), (3, True), (5, True), (1, False)))
+    # two slots: every conv at C <= 128; at C = 256 the conv1 with
+    # (k - 1) d <= 30, 8 of 18 launches; at C <= 64 two blocks with two
+    # slots each fit an SM's 233,472 bytes (1,024 of them reserved a block)
+    assert all(2 * (mrf.wg_smem_bytes(C, k, d, c1, 2) + 1024) <= 233472
+               for C in (64, 32, 16) for k in KS
+               for d, c1 in ((1, True), (3, True), (5, True), (1, False)))
+    assert [mrf.wg_two_slot_convs(C, KS, DS) for C in (256, 128, 64, 32,
+                                                       16)] == [
+        8, 18, 18, 18, 18]
     # the widest stage the kernel takes: conv2's residual rows counted
     assert mrf.wg_smem_bytes(384, 11, 1, False) <= mrf.SMEM_LIMIT
     assert mrf.wg_smem_bytes(512, 11, 1, False) > mrf.SMEM_LIMIT
@@ -473,9 +644,11 @@ def test_tiling_and_shared_memory_of_the_main_path():
 
 
 def test_work_split_constants_match_the_source():
-    """The consumer warpgroups, tile depth, ring slots, widest block, row
-    pad and alignment that this file's emulation and ops/mrf.py use are
-    the kernel's own constants, and its descriptor is wg_desc's."""
+    """The consumer warpgroups, tile depth, ring slots, MMA groups in
+    flight, widest block, tile row pad and alignment that this file's
+    emulation and ops/mrf.py use are the kernel's own constants, its
+    window rows are wg_window_rows', and its descriptors are wg_desc's
+    and wg_a_desc's."""
     with open(os.path.join(mrf._CSRC, "mrf_wg.cu")) as f:
         src = f.read()
 
@@ -484,14 +657,35 @@ def test_work_split_constants_match_the_source():
                              src).group(1))
 
     assert (const("kConsumerWGs"), const("kTileK"), const("kStages"),
-            const("kMaxBN"), const("kRowPad"), const("kAlign")) == (
-        mrf.WG_CONSUMERS, mrf.WG_TILE_K, mrf.WG_STAGES, mrf.WG_MAX_BN,
-        mrf.WG_ROW_PAD, mrf.WG_ALIGN)
+            const("kMmaGroups"), const("kMaxBN"), const("kRowPad"),
+            const("kAlign"), const("kMaxBox"), const("kMaxChunks")) == (
+        mrf.WG_CONSUMERS, mrf.WG_TILE_K, mrf.WG_STAGES, mrf.WG_MMA_GROUPS,
+        mrf.WG_MAX_BN, mrf.WG_ROW_PAD, mrf.WG_ALIGN, mrf.WG_MAX_BOX,
+        mrf.WG_MAX_CHUNKS)
     assert const("kMaxPostK") == mrf.F32_MAX_POST_K
+    assert const("kMaxSmem") == mrf.SMEM_LIMIT
     body = re.search(r"uint64_t b_desc\(uint32_t addr\) \{(.*?)\}", src,
                      re.S).group(1)
     assert "(1024 >> 4) << 32" in body and "1 << 62" in body
     assert "(uint64_t)1 << 16" in body and "(addr & 0x3FFFF) >> 4" in body
+    body = re.search(r"uint64_t a_desc\(uint32_t addr, uint32_t lbo\) "
+                     r"\{(.*?)\}", src, re.S).group(1)
+    assert "(128 >> 4) << 32" in body and "<< 62" not in body
+    assert "((lbo >> 4) & 0x3FFF) << 16" in body
+    assert "(addr & 0x3FFFF) >> 4" in body
+    body = re.search(r"constexpr int win_rows\(.*?\{(.*?)\n\}", src,
+                     re.S).group(1)
+    assert "win_boxes(bn, k, d) * box_rows(bn, k, d)" in body
+    body = re.search(r"constexpr int box_rows\(.*?\{(.*?)\n\}", src,
+                     re.S).group(1)
+    assert "7) / 8 * 8" in body
+    # MT and the blocks an SM holds follow from BN as wg_tiling says
+    assert "return bn >= 64 ? 1 : 2;" in src
+    assert "return bn <= 64 ? 2 : 1;" in src
+    assert all(mrf.wg_tiling(C)[1] == (1 if mrf.wg_block(C) >= 64 else 2)
+               for C in (16, 32, 48, 64, 128, 256, 384))
+    # the register-A path is gone
+    assert "ldmatrix" not in src
 
 
 @pytest.mark.parametrize("name", list(mrf_wg_variants.VARIANTS))
@@ -505,8 +699,8 @@ def test_design_sweep_edits_match_the_source(name):
     out = mrf_wg_variants.variant_source(name, src)
     assert (out == src) == (name == "base")
     if name == "prof":
-        assert out.count("clock64()") == 14
-        assert out.count("pr[") == 9 and "mrf_wg_prof" in out
+        assert out.count("clock64()") == 22
+        assert out.count("pr[") == 13 and "mrf_wg_prof" in out
         assert out.count("{") == out.count("}")
     if mrf_wg_variants.VARIANTS[name]:
         with pytest.raises(ValueError):

@@ -8,26 +8,36 @@ Builds the kernel as it stands and variants of it, each from a copy of
 the source fails the run, so the sweep cannot drift from the kernel):
 
 - ``stages3`` / ``stages6``: 3 or 6 weight tiles in the ring, not 4;
-- ``bm256``: MT = 2 m64 tiles a warpgroup at BN = 128 too (BM = 256 at
-  C >= 128, as at C <= 64);
+- ``groups2``: 2 MMA commit groups kept in flight, not 1;
+- ``bm256``: MT = 2 m64 tiles a warpgroup at BN >= 64 too (BM = 256 at
+  C >= 64, as at C <= 32);
 - ``nopersist``: one window slot, a block a position tile, everywhere;
-- ``wait3``: the window's cp.async waits capped at 3 groups in flight (at
-  C = 256 a persistent block then waits for the whole window and the next
-  tile's first chunk before its first MMA);
-- ``noepi`` / ``nomma``: the epilogue, or the wgmma instructions, left
-  out (diagnostics: their outputs are not the stage's);
+- ``box128``: window planes copied in tensor copies of at most 128 rows,
+  not 256;
+- ``occ1``: one block an SM at BN <= 64 too (the launch bound that lets
+  ptxas use more registers than two blocks leave);
+- ``mt1``: MT = 1 at BN <= 32 too (BM = 128 everywhere);
+- ``nowin`` / ``nolrelu`` / ``noepi`` / ``nomma``: the window's tensor
+  copies (the producer arrives on each chunk's barrier with none), conv1's
+  lrelu pass, the epilogue or the wgmma instructions left out
+  (diagnostics: their outputs are not the stage's);
 - ``prof``: the kernel with clock64 probes, whose counters split the time
-  of consumer thread 0 of every block into the window's cp.async issue,
-  the waits for the window's chunks, the A fragments' ldmatrix (and
-  conv1's lrelu), the waits on the ring's full barrier, the MMAs (issue
-  to ``wgmma.wait_group``) and the epilogue.
+  of consumer thread 0 of every block into the issue of conv2's residual
+  rows, the waits for the window's chunks (their barriers and, in conv1,
+  the consumers' barrier after the lrelu pass), conv1's lrelu pass (the A
+  preparation), the waits on the ring's full barrier, the MMAs' issue
+  (their descriptors and ``wgmma`` instructions), the waits for their
+  commit groups (``wgmma.wait_group``, the drains before a chunk
+  included) and the epilogue; the rest (the steps' counters and
+  addresses, the slots' release, the residual rows' wait) is what the
+  table's shares leave.
 
 Then, in one process and with HiFi-GAN V1's weights drawn from a seed,
 times with CUDA events (the mean of ``--reps`` calls after one warm-up)
 the four bf16 MRF stages at B=8, mel 1024 and at B=1, mel 768 through
 ``fused_mrf_stage``/``fused_mrf_stage_streamed`` with each variant's
 library, in the order of ``VARIANTS`` and then back, holding every variant
-but the two diagnostics to the plain bf16 stage (rtol = 2^-6, atol =
+but the diagnostics to the plain bf16 stage (rtol = 2^-6, atol =
 1e-2, as chip_smoke.py).  A stage a variant cannot launch (its shared
 memory does not fit) is recorded as null.  Prints the card's name and
 power limit, each variant's ptxas faults, the tables and one JSON line.
@@ -52,80 +62,101 @@ sys.path.insert(0, _ROOT)
 from cmtts_tpu_torch.ops import mrf  # noqa: E402
 
 SRC = "mrf_wg.cu"
-_WAIT = "cp_async_wait(nchunk - 1 - c + (a.persist ? nchunk : 0));"
 _EPI = ("    epilogue<BN, MT, CONV1>(a, acc, smem + (win - raw),\n"
-        "                            smem + (win - raw) + rows * rowb, b, p0,"
-        " nb);\n")
+        "                            smem + (win - raw) + area, b, p0, nb);\n")
+_NOPERSIST = (
+    "a.persist = wg_smem_bytes(BN, a.Cp, a.k, a.d, CONV1, 1) <= kMaxSmem;",
+    "a.persist = 0;")
+_EXPECT = "          mbar_expect_tx(bar, ppc * nbox * box * 16);\n"
 _PROF_READ = r"""
 extern "C" int mrf_wg_prof(unsigned long long* out) {
   int e = (int)cudaMemcpyFromSymbol(out, mrf::g_prof, sizeof(mrf::g_prof));
-  unsigned long long z[8] = {};
+  unsigned long long z[9] = {};
   if (e == 0) e = (int)cudaMemcpyToSymbol(mrf::g_prof, z, sizeof(z));
   return e;
 }
 """
 # the probes' counters: consumer thread 0's clock64 cycles a block
-PROF_KEYS = ("all", "window_wait", "full_wait", "mma", "epilogue",
-             "a_loads", "window_issue", "blocks")
+PROF_KEYS = ("all", "window_wait", "full_wait", "mma_issue", "epilogue",
+             "a_prep", "residual_issue", "mma_wait", "blocks")
 # (old text, new text) edits of csrc/mrf_wg.cu a variant
 VARIANTS = {
     "base": [],
     "stages3": [("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
     "stages6": [("constexpr int kStages = 4;", "constexpr int kStages = 6;")],
-    "bm256": [("return bn == kMaxBN ? 1 : 2;", "return 2;")],
-    "nopersist": [(
-        "a.persist = wg_smem_bytes(BN, a.Cp, a.k, a.d, CONV1, 1) <= kMaxSmem;",
-        "a.persist = 0;")],
-    "wait3": [(_WAIT, "cp_async_wait(min(3, nchunk - 1 - c + "
-                      "(a.persist ? nchunk : 0)));")],
+    "groups2": [("constexpr int kMmaGroups = 1;",
+                 "constexpr int kMmaGroups = 2;")],
+    "bm256": [("return bn >= 64 ? 1 : 2;", "return 2;")],
+    "nopersist": [_NOPERSIST],
+    "box128": [("constexpr int kMaxBox = 256;", "constexpr int kMaxBox = 128;")],
+    "occ1": [("return bn <= 64 ? 2 : 1;", "return 1;")],
+    "mt1": [("return bn >= 64 ? 1 : 2;", "return 1;")],
+    # the producer arrives on a chunk's barrier with no copies: the windows
+    # keep what they held (a diagnostic of the copies' cost)
+    "nowin": [(_EXPECT, "          mbar_expect_tx(bar, 0);\n"
+                        "          continue;\n")],
+    "nolrelu": [("    if (CONV1) {\n      const uint32_t base",
+                 "    if (false) {\n      const uint32_t base")],
     "noepi": [(_EPI, "")],
-    "nomma": [("for (int m = 0; m < MT; ++m) Wgmma<BN>::mma(acc[m], "
-               "af[jj][m], desc);", "")],
+    "nomma": [("Wgmma<BN>::mma(acc[m], da, db);", "")],
     "prof": [
         ("template <int BN, bool CONV1>\n__global__",
-         "__device__ unsigned long long g_prof[8];\n\n"
+         "__device__ unsigned long long g_prof[9];\n\n"
          "template <int BN, bool CONV1>\n__global__"),
         ("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n\n"
          "  if (threadIdx.x == 0) {",
          "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
-         "  long long pr[7] = {0, 0, 0, 0, 0, 0, 0};\n"
+         "  long long pr[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
          "  const long long pr_start = clock64();\n"
          "  long long pr_t = pr_start;\n\n"
          "  if (threadIdx.x == 0) {"),
-        ("    if (a.persist) {              // the next tile's window",
+        ("    if (!a.persist) {\n      load_residual(t, win0);",
          "    pr_t = clock64();\n"
-         "    if (a.persist) {              // the next tile's window"),
-        ("      load_window(t, win0);\n    }\n",
-         "      load_window(t, win0);\n    }\n"
-         "    pr[6] += clock64() - pr_t;\n"),
-        ("      uint32_t af[4][MT][4];\n",
-         "      uint32_t af[4][MT][4];\n      pr_t = clock64();\n"),
-        (_WAIT + "\n          consumer_sync();",
-         "const long long w0 = clock64();\n          " + _WAIT
-         + "\n          consumer_sync();\n          pr[1] += clock64() - w0;"),
+         "    if (!a.persist) {\n      load_residual(t, win0);"),
+        ("      cp_async_commit();\n    }\n    float acc",
+         "      cp_async_commit();\n    }\n"
+         "    pr[6] += clock64() - pr_t;\n    float acc"),
+        ("        wg_wait<0>();\n        for (; rel < tile; ++rel) {",
+         "        pr_t = clock64();\n        wg_wait<0>();\n"
+         "        pr[7] += clock64() - pr_t;\n"
+         "        for (; rel < tile; ++rel) {"),
+        ("    mbar_wait(bar, parity);\n    if (CONV1) {",
+         "    const long long w0 = clock64();\n"
+         "    mbar_wait(bar, parity);\n"
+         "    pr[1] += clock64() - w0;\n"
+         "    const long long w1 = clock64();\n    if (CONV1) {"),
+        ("      fence_proxy_async();\n      consumer_sync();\n    }\n  };",
+         "      fence_proxy_async();\n"
+         "      pr[5] += clock64() - w1;\n"
+         "      const long long w2 = clock64();\n"
+         "      consumer_sync();\n"
+         "      pr[1] += clock64() - w2;\n    }\n  };"),
         ("      mbar_wait(full + 8 * slot, (n / kStages) & 1);\n",
-         "      pr[5] += clock64() - pr_t;\n      pr_t = clock64();\n"
+         "      pr_t = clock64();\n"
          "      mbar_wait(full + 8 * slot, (n / kStages) & 1);\n"
          "      pr[2] += clock64() - pr_t;\n      pr_t = clock64();\n"),
-        ("      if (lane == 0) mbar_arrive(empty + 8 * slot);",
-         "      pr[3] += clock64() - pr_t;\n"
-         "      if (lane == 0) mbar_arrive(empty + 8 * slot);"),
+        ("      wg_commit();\n      wg_wait<kMmaGroups>();\n",
+         "      wg_commit();\n      pr[3] += clock64() - pr_t;\n"
+         "      pr_t = clock64();\n      wg_wait<kMmaGroups>();\n"
+         "      pr[7] += clock64() - pr_t;\n"),
+        ("    wg_wait<0>();\n    for (; rel < tiles; ++rel) {",
+         "    pr_t = clock64();\n    wg_wait<0>();\n"
+         "    pr[7] += clock64() - pr_t;\n"
+         "    for (; rel < tiles; ++rel) {"),
         (_EPI, "    pr_t = clock64();\n" + _EPI
          + "    pr[4] += clock64() - pr_t;\n"),
-        ("    consumer_sync();              // the window is free for the "
-         "next load\n  }\n}\n",
-         "    consumer_sync();              // the window is free for the "
-         "next load\n  }\n"
+        ("    mbar_arrive_if(wempty + 8 * s, lane == 0);\n  }\n}\n",
+         "    mbar_arrive_if(wempty + 8 * s, lane == 0);\n  }\n"
          "  if (threadIdx.x == 0) {\n"
          "    pr[0] = clock64() - pr_start;\n"
-         "    for (int i = 0; i < 7; ++i) {\n"
+         "    for (int i = 0; i < 8; ++i) {\n"
          "      atomicAdd(&g_prof[i], (unsigned long long)pr[i]);\n"
          "    }\n"
-         "    atomicAdd(&g_prof[7], 1ull);\n"
+         "    atomicAdd(&g_prof[8], 1ull);\n"
          "  }\n}\n"),
     ],
 }
-DIAGNOSTIC = ("noepi", "nomma")
+DIAGNOSTIC = ("nowin", "nolrelu", "noepi", "nomma")
 KS, DS = (3, 7, 11), (1, 3, 5)
 STAGES = ((256, 8), (128, 64), (64, 128), (32, 256))
 
@@ -253,7 +284,7 @@ def main() -> int:
                 runs[0 if runs[0][i] is None else 1][i] = t
         # the time split: one call a stage after the timing's warm-ups
         mrf._lib = libs["prof"]
-        buf = (ctypes.c_ulonglong * 8)()
+        buf = (ctypes.c_ulonglong * len(PROF_KEYS))()
         for key, i, x, p, _ in cases:
             libs["prof"].mrf_wg_prof(buf)          # clears the counters
             call(i, x, p)
@@ -275,9 +306,10 @@ def main() -> int:
             s = [sum(r) if None not in r else None for r in (a, b)]
             print(f"| {n} | {' / '.join(map(fmt, a))}; "
                   f"{' / '.join(map(fmt, b))} | {fmt(s[0])}; {fmt(s[1])} |")
-    print("\n| probes | stage C | blocks | kcycles a block | window issue | "
-          "window wait | A loads | full wait | MMAs | epilogue |")
-    print("|---|---|---|---|---|---|---|---|---|---|")
+    print("\n| probes | stage C | blocks | kcycles a block | residual issue | "
+          "window wait | A prep | full wait | MMA issue | MMA wait | "
+          "epilogue |")
+    print("|---|---|---|---|---|---|---|---|---|---|---|")
     for key, rows in prof.items():
         for (C, _), r in zip(STAGES, rows):
             allc = max(r["all"], 1)
@@ -285,13 +317,11 @@ def main() -> int:
             def pct(k):
                 return f"{100 * r[k] / allc:.1f}%"
 
-            # a_loads ran from the tile's first ldmatrix to its full-barrier
-            # wait, the window waits inside it
-            r["a_loads"] -= r["window_wait"]
             print(f"| {key} | {C} | {r['blocks']} | "
                   f"{r['all'] / max(r['blocks'], 1) / 1e3:.1f} | "
-                  f"{pct('window_issue')} | {pct('window_wait')} | "
-                  f"{pct('a_loads')} | {pct('full_wait')} | {pct('mma')} | "
+                  f"{pct('residual_issue')} | {pct('window_wait')} | "
+                  f"{pct('a_prep')} | {pct('full_wait')} | "
+                  f"{pct('mma_issue')} | {pct('mma_wait')} | "
                   f"{pct('epilogue')} |")
     res = {"times_ms": times, "probes": prof,
            "ptxas_faults": {n: built[n][1] for n in names}}
