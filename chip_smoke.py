@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build the MRF kernels,
-hold each against its plain PyTorch version on the card, then synthesise
-at full LJSpeech width through the port's ``Synthesizer``, and zero-shot
-at full VCTK width with both speaker embedders and every sampler.
+"""Check of the PyTorch port on one NVIDIA GPU: build the MRF kernels,
+hold each against its plain PyTorch version on the card, then run every
+slice of the port at full width and hold it to the CPU, to its plain path
+or to its saved state.  Speed is the benchmark's (``perfbench/``): beside
+phase 2's kernel times and phase 3's graph replay, this script reports
+only each phase's wall seconds.
 
     python3 chip_smoke.py             # every phase
     python3 chip_smoke.py --kernels   # phases 1 and 2 only
@@ -26,51 +28,51 @@ exits non-zero):
      18 ``F.conv1d`` in bf16 with the same elementwise ops, timed only);
   3. synthesis (random weights from a seed): B=1 from text at T=1, checked
      against the float32 acoustic model on the CPU and the plain vocoder on
-     the card; B=8 at 96 tokens (mel bucket 1024) at T=1 and T=2, with the
-     real-time factor; B=1 in float32 (the float32 kernels' users), its
-     wav against the plain float32 vocoder; the CUDA-graph replays of B=1
-     T=1, B=8 T=1 and B=8 T=2 against the same calls made eagerly (noise
-     from a seed and given; outputs bit for bit, else within the cells'
-     ``mel_err`` limit; held outputs unchanged by later calls; the
-     counters; eager and replay ms, and the ms of a first call with new
-     controls, capturing, against the same call made eagerly); device
-     memory after 1, 10 and 64 graphs of one shape at B=1 and B=8, and
-     the 65th key eager.  Launch counters are zeroed before this phase.
+     the card; one call each of B=1 from a seed and of B=8 at 96 tokens
+     (mel bucket 1024) at T=1 and T=2, each launching the MRF kernels
+     [3, 1] with finite outputs; B=1 in float32 (the float32 kernels'
+     users), its wav against the plain float32 vocoder; the CUDA-graph
+     replays of B=1 T=1, B=8 T=1 and B=8 T=2 against the same calls made
+     eagerly (noise from a seed and given; outputs bit for bit, else
+     within the cells' ``mel_err`` limit; held outputs unchanged by later
+     calls; the counters; eager and replay ms, and the ms of a first call
+     with new controls, capturing, against the same call made eagerly);
+     device memory after 1, 10 and 64 graphs of one shape at B=1 and B=8,
+     and the 65th key eager.  Launch counters are zeroed before this phase.
   5. zero-shot and samplers at full VCTK width (random weights from a
      seed): a 3 s reference wav embedded by DeepSpeaker and by GE2E on the
      card, each against the same embedder on the CPU (float32, TF32 off);
      B=1 synthesis with that embedding against the CPU float32 port and
-     the plain vocoder, and a second voice must move the mel; B=1 and
-     B=8 x 96 tokens (mel 1024, 8 voices) RTF; every ODE sampler and
+     the plain vocoder, and a second voice must move the mel; one B=8 x 96
+     tokens call (mel 1024, 8 voices); every ODE sampler and
      our_multistep in float32 against the CPU on the same injected noise;
-     heun with 18 levels at B=8 in bf16; ``synthesize_long`` over three
-     chunks; the zero-shot CLI from a reference wav.  Launch counters are
-     zeroed before its synthesis calls and must all rise again.
+     one call of heun with 18 levels at B=8 in bf16; ``synthesize_long``
+     over three chunks; the zero-shot CLI from a reference wav.  Launch
+     counters are zeroed before its synthesis calls and must all rise
+     again.
   6. consistency training at full LJSpeech width (random init from a
      seed, a seeded feature corpus of 128 + 8 utterances written under
      ``build/``): one f32 CT step at B=2 on the card against the same step
-     on the CPU (dropout zeroed, TF32 off); timed B=32 CT steps on the
-     corpus's bucketed batches in f32 and bf16 with the loss-second-moment
-     sampler (median ms, steps/s, peak memory, the denoiser's TFLOP/s, and
-     one step split into student forward, target forward, backward and
-     optimizer); one CD, progdist and EDM step each; then the CLIs:
-     train, auto-resume (the restored state must equal the saved one) and
-     synthesis from the trained checkpoint with HiFi-GAN on random weights,
-     whose MRF kernel launches are counted.  Its numbers go on a
-     ``{"train": {...}}`` line.
+     on the CPU (dropout zeroed, TF32 off); three B=32 CT steps on the
+     corpus's bucketed batches in f32 and in bf16 with the
+     loss-second-moment sampler (finite losses; the sampler's
+     probabilities must leave uniform); one CD, progdist and EDM step
+     each; then the CLIs: train, auto-resume (the restored state must
+     equal the saved one) and synthesis from the trained checkpoint with
+     HiFi-GAN on random weights, whose MRF kernel launches are counted.
+     Its readings go on a ``{"train": {...}}`` line.
   7. the data journey at full LJSpeech width through the CLIs, under
      ``build/chip_smoke_data/`` (removed at the end): a 72-utterance
      formant corpus; ``cli.preprocess`` on the card, then the same
      TextGrids preprocessed on the card, on the CPU and on the card with 2
      workers (card vs CPU: the alignment, f0, pitch and CWT features, the
      split and speakers.json equal, mel, energy and stats.json within
-     tolerance; 2 workers bit-identical to serial), with utterances/s and
-     per-utterance front-end (CUDA events) against host ms; 4 bf16 CT
-     steps; ``cli.synthesize --mode batch --restore_step 0`` of the 8 val
+     tolerance; 2 workers bit-identical to serial); 4 bf16 CT steps;
+     ``cli.synthesize --mode batch --restore_step 0`` of the 8 val
      utterances with HiFi-GAN on random weights (MRF launches counted);
      ``cli.all_metrics`` synthesized vs raw and raw vs raw (MCD 0), in two
      subprocesses beside ``cli.evaluate`` (then card vs CPU on one x_T) and
-     ``cli.get_mel_cache`` (one file vs the CPU).  Its numbers go on a
+     ``cli.get_mel_cache`` (one file vs the CPU).  Its readings go on a
      ``{"data": {...}}`` line.
   8. serving and reference checkpoints at full LJSpeech width under
      ``build/chip_smoke_serve/`` (removed at the end): HiFi-GAN V1 and V2
@@ -78,31 +80,30 @@ exits non-zero):
      ``best_netG.pt`` written from seeded random port modules; V1 through
      ``cli.convert_checkpoint`` and back, against its source in f32; the
      HTTP server over a bf16 ``Synthesizer`` with that V1: warm-up of
-     batches 1-8, ``/healthz``, 10 sequential requests (median latency and
-     RTF; the served wav against the direct call), 8 concurrent ones
-     through a 20 ms batching window, a stream over three sentences (time
-     to first byte), a long text through the chunked path, MRF launches 3
-     fused and 1 streamed per device call; ``cli.p_rtf_cm`` over 16
-     utterances at batch 8; ``cli.synthesize`` with the V2 file (4 fused
-     launches, its C = 8 last stage padded to 16 channels, against the
-     plain V2 generator),
-     with MelGAN (card vs CPU) and with ``--lang zh``.  Its numbers go on
-     a ``{"serve": {...}}`` line.
+     batches 1-8, ``/healthz``, a request (its latency headers present;
+     the served wav against the direct call), the B=1 call in the main
+     thread, in a persistent thread and in a thread of its own, 8
+     concurrent requests through a 20 ms batching window (a coalesced
+     batch), a stream over three sentences (RIFF/WAVE), a long text
+     through the chunked path, MRF launches 3 fused and 1 streamed per
+     device call; ``cli.p_rtf_cm`` over 16 utterances at batch 8 (a
+     finite rate); ``cli.synthesize`` with the V2 file (4 fused launches,
+     its C = 8 last stage padded to 16 channels, against the plain V2
+     generator), with MelGAN (card vs CPU) and with ``--lang zh``.  Its
+     readings go on a ``{"serve": {...}}`` line.
   9. the vocoder and speaker-encoder trainers under
      ``build/chip_smoke_trainers/`` (removed at the end): an 8-speaker
      formant corpus from ``cli.gen_corpus`` (6 under ``raw/``); one f32
      HiFi-GAN GAN step (B=2 x 8192, generator width 128, discriminators
-     / 4) and one GE2E step (S=4 x U=4) on the card against the CPU;
-     timed f32 steps at the published sizes (HiFi-GAN V1 with the paper's
-     MPD + MSD at B=16 x 8192: median ms, the D and G halves, peak
-     memory, TFLOP/s of its convolutions, a ``torch.profiler`` busy
-     share; GE2E at 64 x 10 partials of 160 x 40); ``cli.train_hifigan``
-     to step 4, ``--resume`` to 6 (the saved state equal to the run's),
-     2 paired fine-tuning steps from the exported generator; that
-     generator through ``load_hifigan`` into a bf16 ``Synthesizer`` at
-     B=8 (MRF launches [3, 1], the wav against its plain path);
-     ``cli.train_ge2e`` with 2 held-out speakers and its
-     ``ge2e_params.npy`` through ``PreDefinedEmbedder``.  Its numbers go
+     / 4) and one GE2E step (S=4 x U=4) on the card against the CPU; one
+     f32 step each at the published sizes (HiFi-GAN V1 with the paper's
+     MPD + MSD at B=16 x 8192; GE2E at 64 x 10 partials of 160 x 40),
+     finite losses; ``cli.train_hifigan`` to step 4, ``--resume`` to 6
+     (the saved state equal to the run's), 2 paired fine-tuning steps from
+     the exported generator; that generator through ``load_hifigan`` into
+     a bf16 ``Synthesizer`` at B=8 (MRF launches [3, 1], the wav against
+     its plain path); ``cli.train_ge2e`` with 2 held-out speakers and its
+     ``ge2e_params.npy`` through ``PreDefinedEmbedder``.  Its readings go
      on a ``{"trainers": {...}}`` line.
   10. ranks and the MOS metric nets under ``build/chip_smoke_parallel/``
      (removed at the end): ``cli.train_cm`` as a one-rank NCCL run under
@@ -113,30 +114,28 @@ exits non-zero):
      one-process step on the card, the 20 x 256 denoiser at tp=2 against
      the whole one, dp=2 B=8 synthesis through the MRF kernels ([3, 1] on
      each rank, each rank's call eager: no graph replayed or captured)
-     against the one-process call; MBNet at its published
-     widths on three 3 s wavs and both LDNet test configurations, card
-     against CPU, with MBNet's ms an utterance; ``cli.all_metrics
-     --metrics mb_mos ld_mos`` on reference-format MBNet and LDNet files
-     written from seeded modules.  Its numbers go on a ``{"parallel":
-     {...}}`` line.
+     against the one-process call; MBNet at its published widths on three
+     3 s wavs and both LDNet test configurations, card against CPU;
+     ``cli.all_metrics --metrics mb_mos ld_mos`` on reference-format MBNet
+     and LDNet files written from seeded modules.  Its readings go on a
+     ``{"parallel": {...}}`` line.
   11. the image-domain consistency model, the legacy GAN objectives and
      the native npy loader under ``build/chip_smoke_image/`` (removed at
      the end): the ImageNet-64 UNet of openai/consistency_models'
      ``cd_imagenet64_l2`` (296M params, random weights from a seed) — a
      B=2 forward and a onestep sample card against CPU with its zero-init
-     layers redrawn; the B=16 forward (ms, TFLOP/s) and images/s of
-     onestep, multistep (0, 22, 39 of 40) and heun-40; colorization,
-     inpainting and super-resolution at B=4, each output held to its
-     measurement, and card against CPU at a narrower width; one f32 CT step
-     card against CPU (narrow), timed CT steps at B=16, one CD step;
+     layers redrawn; one B=2 call each of multistep (0, 22, 39 of 40) and
+     heun-40 (finite samples); colorization, inpainting and
+     super-resolution at B=4, each output held to its measurement, and
+     card against CPU at a narrower width; one f32 CT step card against
+     CPU (narrow); one CT and one CD step at B=16 (finite losses);
      ``cli.image_sample`` from an ``.npz`` and from a reference ``.pt``
      of the same weights, one after the other (both loaders bit-equal to
-     the weights, equal images); the JCU discriminator at the
-     LJSpeech plan on a B=16 x 1024 pair and each GAN loss card against
-     CPU; the native loader's build and a B=32 batch byte-equal to
-     ``np.load``, with ms against serial ``np.load``.  No MRF kernel runs
-     here.  Its numbers, with the card's name and power limit, go on an
-     ``{"image": {...}}`` line.
+     the weights, equal images); the JCU discriminator at the LJSpeech
+     plan on a B=16 x 1024 pair and each GAN loss card against CPU; the
+     native loader's build and a B=32 batch byte-equal to ``np.load``.  No
+     MRF kernel runs here.  Its readings, with the card's name and power
+     limit, go on an ``{"image": {...}}`` line.
   12. the quality loop and the quality and bench tools under
      ``build/chip_smoke_quality/`` (removed at the end): a
      ``cli.synthesize`` subprocess, started with TF32 on, reads both TF32
@@ -154,15 +153,17 @@ exits non-zero):
      CPU; ``cli.train_ge2e`` and ``run_zeroshot_quality.sh`` on a
      6-speaker corpus (2 held out); ``extend_holdout`` with its
      determinism check; ``check_ge2e_holdout``; ``diag_pitch`` on the CT
-     checkpoint; ``bench_train`` (B=32 x 768, K=1 and K=8);
-     ``run_serve_bench.sh`` against ``cli.serve`` with the trained
-     HiFi-GAN at concurrency 1 and 8.  Its numbers, with the card's name
-     and power limit, go on a ``{"quality": {...}}`` line.
+     checkpoint; ``bench_train`` (B=32 x 768, K=1 and K=8; its result's
+     keys, finite losses); ``run_serve_bench.sh`` against ``cli.serve``
+     with the trained HiFi-GAN at concurrency 1 and 8 (no errors).  Its
+     readings, with the card's name and power limit, go on a
+     ``{"quality": {...}}`` line.
   4. a ``{"kernels": [...]}`` line, an entry for each entry point and
      type (bf16: launches of phases 3, 5, 6, 7, 8, 9, 10, 11 and 12, the
      last in-process only; float32: phase 3's float32 call),
      the card's name and power limit, and a last line
-     ``{"ok": true, "device": {...}}``.
+     ``{"ok": true, "device": {...}, "phase_s": {...}}`` with each
+     phase's wall seconds.
 
 Needs CUDA; exits non-zero without it.
 """
@@ -429,24 +430,6 @@ def counted_synthesis(synth, seqs, counters, hop, **kw):
     return mel, lens, wav
 
 
-def timed_rtf(synth, seqs, counters, hop, sr, reps=5, **kw):
-    """(RTF, median wall s, s of audio) over ``reps`` counted calls after a
-    warm-up, each ending in a device synchronise."""
-    import torch
-
-    counted_synthesis(synth, seqs, counters, hop, **kw)     # warm-up
-    times, audio = [], None
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, lens_, _ = counted_synthesis(synth, seqs, counters, hop, **kw)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        audio = float(lens_.sum()) * hop / sr
-    wall = statistics.median(times)
-    return wall / audio, wall, audio
-
-
 def graph_counts() -> dict:
     """The port's synthesis-call counters (``pipeline.GRAPH_COUNTERS``)."""
     from cmtts_tpu_torch.core.trace import counters
@@ -637,8 +620,8 @@ def reference_wav(seed: int, seconds: float = 3.0, sr: int = 22050):
 
 def zero_shot_phase(counters, vocoder, root: str) -> dict:
     """Phase 5 at full VCTK width (random weights from a seed): embedders
-    on the card against the CPU, zero-shot synthesis (checked, then timed),
-    every new sampler against the CPU, long-form synthesis and the
+    on the card against the CPU, zero-shot synthesis at B=1 and B=8, every
+    new sampler against the CPU, heun-18, long-form synthesis and the
     zero-shot CLI.  Returns the readings and the kernel launches of the
     zero-shot path; raises on any mismatch."""
     import copy
@@ -678,30 +661,9 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
         err = check(f"{name} embedding, card vs CPU", torch.from_numpy(emb),
                     torch.from_numpy(run(on_cpu, wav_ref)),
                     dict(rtol=0, atol=1e-4))
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(on_gpu, wav_ref)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        if name == "DeepSpeaker":
-            x = torch.randn(1, 160, 64, 1, device=dev)
-        else:   # the partials of a 3 s utterance
-            x = torch.rand(3, 160, 40, device=dev)
-        with torch.no_grad():
-            fwd = cuda_ms(lambda: on_gpu.model(x), reps=10)
-            # PyTorch's default lets cuDNN convs (not the LSTM) use TF32
-            torch.backends.cudnn.allow_tf32 = True
-            fwd_tf32 = cuda_ms(lambda: on_gpu.model(x), reps=10)
-            torch.backends.cudnn.allow_tf32 = False
-        out[f"{name}_ms_per_utterance"] = statistics.median(times) * 1e3
-        out[f"{name}_forward_ms"] = fwd
-        out[f"{name}_forward_ms_cudnn_tf32"] = fwd_tf32
+        out[f"err_{name}"] = err
         log(f"  {name}: {emb.shape[0]} features, max|err| card vs CPU "
-            f"{err:.3e}; {out[f'{name}_ms_per_utterance']:.2f} ms per 3 s "
-            f"utterance (host features included), forward {fwd:.3f} ms, "
-            f"{fwd_tf32:.3f} ms with cuDNN TF32 (input {tuple(x.shape)})")
+            f"{err:.3e}")
         embed[name] = (emb, on_gpu)
     emb, ds = embed["DeepSpeaker"]
     if emb.shape[0] != cfg.model.external_speaker_dim:
@@ -749,21 +711,14 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
         f"{moved:.3e}")
     out["err_mel_B1"], out["err_wav_B1"] = err_mel, err_voc
 
-    # 3. RTF: B=1 from text, and B=8 x 96 tokens at mel 1024 with 8 voices
-    r, wall, audio = timed_rtf(synth1, [tokens], counters, hop, sr,
-                               spker_embeds=emb[None])
-    out["B1_T1_rtf"], out["B1_T1_wall_ms"] = r, wall * 1e3
-    log(f"  zero-shot RTF B=1 T=1: {r:.6f} (median wall {wall * 1e3:.2f} ms "
-        f"for {audio:.3f} s of audio)")
+    # 3. B=8 x 96 tokens at mel 1024 with 8 voices
     voices = np.stack([ds.predict_embedding(reference_wav(10 + i, 1.5), sr)
                        for i in range(8)])
     batch = [np.random.RandomState(i).randint(13, 140, 96).astype(np.int32)
              for i in range(8)]
-    r, wall, audio = timed_rtf(synth1, batch, counters, hop, sr,
-                               spker_embeds=voices, mel_bucket=1024)
-    out["B8_T1_rtf"], out["B8_T1_wall_ms"] = r, wall * 1e3
-    log(f"  zero-shot RTF B=8 T=1 (mel bucket 1024, 8 voices): {r:.6f} "
-        f"(median wall {wall * 1e3:.2f} ms for {audio:.3f} s of audio)")
+    counted(synth1, batch, spker_embeds=voices, mel_bucket=1024)
+    log("  zero-shot B=8 T=1 (mel bucket 1024, 8 voices): MRF launches "
+        "[3, 1], finite outputs")
 
     # 4. every new sampler at B=1 in float32 on the card vs the CPU, the
     # same injected noise; then heun with 18 levels at B=8 in bf16
@@ -793,11 +748,9 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
         log(f"  {sampler:13s} T={T} steps={steps}: max|err| card vs CPU "
             f"{err:.3e}")
     heun = Synthesizer(cfg, model, vocoder, sampler="heun", sample_steps=18)
-    r, wall, audio = timed_rtf(heun, batch, counters, hop, sr, reps=3,
-                               spker_embeds=voices, mel_bucket=1024)
-    out["B8_heun18_rtf"], out["B8_heun18_wall_ms"] = r, wall * 1e3
-    log(f"  heun, 18 levels (35 denoiser passes), B=8 bf16: RTF {r:.6f} "
-        f"(median wall {wall * 1e3:.2f} ms)")
+    counted(heun, batch, spker_embeds=voices, mel_bucket=1024)
+    log("  heun, 18 levels (35 denoiser passes), B=8 bf16: MRF launches "
+        "[3, 1], finite outputs")
 
     # 5. long-form synthesis over three chunks, then the zero-shot CLI
     chunks = [tokens[:30], tokens[30:55], tokens[55:]]
@@ -824,7 +777,6 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
     work = os.path.join(root, "build", "chip_smoke_zeroshot")
     os.makedirs(work, exist_ok=True)
     write_wav(os.path.join(work, "ref.wav"), wav_ref, sr)
-    t0 = time.perf_counter()
     cli = subprocess.run(
         [sys.executable, "-m", "cmtts_tpu_torch.cli.synthesize_zeroshot",
          "--ref_wav", os.path.join(work, "ref.wav"), "--text", TEXT,
@@ -840,8 +792,7 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
         raise AssertionError(f"zero-shot CLI output: mel {mel_cli.shape}, "
                              f"wav {len(wav_cli)}")
     log(f"  zero-shot CLI (--ref_wav, DeepSpeaker, Griffin-Lim) on the card: "
-        f"{len(mel_cli)} frames, {len(wav_cli)} samples, "
-        f"{time.perf_counter() - t0:.1f} s with start-up")
+        f"{len(mel_cli)} frames, {len(wav_cli)} samples")
     out["launches"] = launches
     return out
 
@@ -891,166 +842,9 @@ def write_training_config(work: str) -> str:
     return root
 
 
-def unet_flop(cfg, batch: int) -> int:
-    """FLOP (2 per multiply-add) of one image-UNet forward at ``batch``,
-    from its ``UNetConfig``'s topology: every convolution, dense layer and
-    the attention's two products; norms, activations and the softmax are
-    left out."""
-    H = cfg.image_size
-    time_dim = cfg.model_channels * 4
-    total = 2 * (cfg.model_channels * time_dim + time_dim * time_dim)
-
-    def conv(cin, cout, hw, k=3):
-        return 2 * cin * cout * k * k * hw * hw
-
-    def res(cin, cout, hw_in, up=False, down=False):
-        hw = hw_in * 2 if up else hw_in // 2 if down else hw_in
-        emb = 2 * time_dim * (2 * cout if cfg.use_scale_shift_norm else cout)
-        skip = conv(cin, cout, hw, 1) if cin != cout else 0
-        return conv(cin, cout, hw) + conv(cout, cout, hw) + emb + skip
-
-    def attn(ch, hw):
-        n = hw * hw
-        return 2 * n * ch * 3 * ch + 2 * n * ch * ch + 2 * 2 * n * n * ch
-
-    ch = int(cfg.channel_mult[0] * cfg.model_channels)
-    hw = H
-    total += conv(cfg.in_channels, ch, hw)
-    chans = [ch]
-    ds = 1
-    for level, mult in enumerate(cfg.channel_mult):
-        for _ in range(cfg.num_res_blocks):
-            out = int(mult * cfg.model_channels)
-            total += res(ch, out, hw)
-            ch = out
-            if ds in cfg.attention_resolutions:
-                total += attn(ch, hw)
-            chans.append(ch)
-        if level != len(cfg.channel_mult) - 1:
-            if cfg.resblock_updown:
-                total += res(ch, ch, hw, down=True)
-            elif cfg.conv_resample:
-                total += conv(ch, ch, hw // 2)
-            hw //= 2
-            chans.append(ch)
-            ds *= 2
-    total += 2 * res(ch, ch, hw) + attn(ch, hw)
-    for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
-        for j in range(cfg.num_res_blocks + 1):
-            out = int(mult * cfg.model_channels)
-            total += res(ch + chans.pop(), out, hw)
-            ch = out
-            if ds in cfg.attention_resolutions:
-                total += attn(ch, hw)
-            if level and j == cfg.num_res_blocks:
-                if cfg.resblock_updown:
-                    total += res(ch, ch, hw, up=True)
-                elif cfg.conv_resample:
-                    total += conv(ch, ch, hw * 2)
-                hw *= 2
-                ds //= 2
-    total += conv(ch, cfg.out_channels, hw)
-    return total * batch
-
-
-def instrumented_step(model, cfg, opt, state, batch, probs, gen, cdt):
-    """One CT step composed of the train step's own pieces with CUDA events
-    between them: (ms by part, loss, indices, noise, the generator's state
-    before the dropout draws), so that the caller can check the loss
-    against the train step's on the same draws."""
-    import torch
-
-    from cmtts_tpu_torch.cm.karras import append_dims, schedule_from_config
-    from cmtts_tpu_torch.cm.losses import make_denoise_fn, variance_loss
-    from cmtts_tpu_torch.text import sil_phonemes_ids
-    from cmtts_tpu_torch.train.loop import make_apply_fn
-    from cmtts_tpu_torch.train.state import tree_ema
-
-    sched = schedule_from_config(cfg)
-    denoise = make_denoise_fn(make_apply_fn(model, cdt), sched)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    x0 = batch["mels"]
-    probs = torch.as_tensor(probs, device=x0.device)
-    idx = torch.multinomial(probs, x0.shape[0], replacement=True,
-                            generator=gen)
-    w = 1.0 / (probs.shape[0] * probs[idx])
-    noise = torch.randn(x0.shape, generator=gen, device=x0.device)
-    t, t2 = sched.t_of_index(idx, 3), sched.t_of_index(idx + 1, 3)
-    x_t = x0 + noise * append_dims(t, 3)
-    params = {k: v.detach().requires_grad_(True)
-              for k, v in state.params.items()}
-    gstate = gen.get_state()
-    ev[0].record()
-    student, cond = denoise(params, x_t, t, batch, gen, False)
-    tts, _ = variance_loss(cond, batch, cfg, tuple(sil_phonemes_ids()))
-    ev[1].record()
-    with torch.no_grad():
-        x_t2 = x_t + (x_t - x0) / append_dims(t, 3) * append_dims(t2 - t, 3)
-        gen.set_state(gstate)
-        target, _ = denoise(state.target_params, x_t2, t2, batch, gen, False)
-    ev[2].record()
-    cm = (student - target).abs().mean(dim=(1, 2))
-    loss = ((10.0 * cm + tts) * w).mean()
-    grads = torch.autograd.grad(loss, list(params.values()))
-    ev[3].record()
-    new, _ = opt.update(dict(zip(params, grads)), state.opt_state,
-                        state.params)
-    for e, r in zip(state.ema_params, cfg.train.cm.ema_rate):
-        tree_ema(e, new, r)
-    tree_ema(state.target_params, new, 0.95)
-    ev[4].record()
-    torch.cuda.synchronize()
-    parts = ("student_forward_and_variance_loss", "target_forward",
-             "backward", "optimizer_and_emas")
-    return ({p: ev[i].elapsed_time(ev[i + 1]) for i, p in enumerate(parts)},
-            loss.item(), idx, noise, gstate)
-
-
-def device_busy(fn, reps: int = 3, top: int = 0) -> dict:
-    """Run ``fn`` ``reps`` times under ``torch.profiler``: the window's
-    CUDA-event ms, the summed duration of the device kernels in it, their
-    share of the window and kernels per call, and with ``top`` the
-    ``top`` kernel names that took the most device time (ms and launches
-    a call).  ``busy_share`` is None when the profiler records no device
-    activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    window = start.elapsed_time(end)
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    out = {"window_ms_per_call": window / reps,
-           "kernel_ms_per_call": busy / reps,
-           "busy_share": busy / window if kernels else None,
-           "kernels_per_call": len(kernels) / reps}
-    if top:
-        by_name: dict = {}
-        for e in kernels:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        out["top_kernels"] = [
-            {"name": name[:96], "ms_per_call": ms / reps,
-             "launches_per_call": n / reps}
-            for name, (ms, n) in sorted(by_name.items(),
-                                        key=lambda kv: -kv[1][0])[:top]]
-    return out
-
-
 def training_phase(counters, root: str, device: str = "cuda") -> dict:
-    """Phase 6 at full LJSpeech width: card vs CPU, timed B=32 steps in
-    f32 and bf16, CD / progdist / EDM, and the CLI journey on ``device``.
+    """Phase 6 at full LJSpeech width: card vs CPU, three B=32 steps in
+    f32 and in bf16, CD / progdist / EDM, and the CLI journey on ``device``.
     Returns the readings and the MRF launches of the journey's synthesis;
     raises on any mismatch."""
     import copy
@@ -1071,7 +865,6 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
     )
     from cmtts_tpu_torch.data.feature_corpus import write_feature_corpus
     from cmtts_tpu_torch.models.cmtts import CMTTS, init_like_flax
-    from cmtts_tpu_torch.models.denoiser import denoiser_flop
     from cmtts_tpu_torch.train.loop import batch_to_device, make_train_step
     from cmtts_tpu_torch.train.resample import create_schedule_sampler
     from cmtts_tpu_torch.train.state import RAdam, create_train_state
@@ -1081,14 +874,11 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
     out = {}
     work = os.path.join(root, "build", "chip_smoke_train")
     shutil.rmtree(work, ignore_errors=True)
-    t0 = time.perf_counter()
     write_feature_corpus(os.path.join(work, "pre"), 128, 8, seed=0)
     config_root = write_training_config(work)
     cfg = load_configs("LJSpeech", config_root)
     dataset = FeatureDataset("train.txt", cfg)
-    out["corpus_s"] = time.perf_counter() - t0
-    log(f"  corpus: {len(dataset)} train utterances written and config "
-        f"root ready in {out['corpus_s']:.1f} s")
+    log(f"  corpus: {len(dataset)} train utterances written")
 
     # 1. one f32 step at B=2, card vs CPU: same params, indices and noise
     mc = cfg.model
@@ -1134,73 +924,40 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
         f"|err|: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     del cpu_model, gpu_model, res, s_cpu, s_gpu
 
-    # 2. timed B=32 CT steps on the corpus's bucketed batches, LSM sampler
+    # 2. three B=32 CT steps on the corpus's bucketed batches in f32 and in
+    # bf16, the loss-second-moment sampler updated after each
     model = init_like_flax(CMTTS(cfg), torch.Generator().manual_seed(0)).to(
         dev)
     feed = batch_iterator(dataset, 32, 4, seed=0)
-    batches = [batch_to_device(next(feed), dev) for _ in range(12)]
+    batches = [batch_to_device(next(feed), dev) for _ in range(3)]
     gen = torch.Generator(device=dev).manual_seed(0)
-    timing = {}
+    ct = {}
     for label, cdt in (("f32", None), ("bf16", torch.bfloat16)):
         opt = RAdam(cfg.train.cm.lr)
         state = create_train_state(
             {k: v.detach() for k, v in model.named_parameters()}, opt, 3)
         sampler = create_schedule_sampler("loss-second-moment", 3)
         step = make_train_step(model, cfg, opt, 3, compute_dtype=cdt)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ms, flop, losses, probs_seen = [], 0, [], []
-        for i, b in enumerate(batches):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+        losses, probs_seen = [], []
+        for b in batches:
             probs = sampler.probs()
             probs_seen.append(probs)
-            start.record()
             state, m = step(state, b, probs, 0.95, gen)
-            end.record()
             sampler.update(m["indices"].cpu().numpy(),
                            m["loss_per_sample"].cpu().numpy())
-            torch.cuda.synchronize()
             losses.append(float(m["loss"]))
-            if i >= 2:       # two warm-ups
-                ms.append(start.elapsed_time(end))
-                B, L = b["mels"].shape[:2]
-                # the denoiser runs forward for the student and the
-                # target, and backward (two forwards' worth) once
-                flop += 4 * denoiser_flop(cfg, B, L)
         if not np.isfinite(losses).all():
             raise AssertionError(f"{label} train losses {losses}")
         if not any(np.abs(p - 0.5).max() > 1e-3 for p in probs_seen[1:]):
             raise AssertionError("the LSM sampler's probs stayed uniform")
-        med = statistics.median(ms)
-        timing[label] = {
-            "median_ms": med, "steps_per_s": 1e3 / med, "ms": ms,
-            "mel_buckets": [int(b["mels"].shape[1]) for b in batches[2:]],
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "denoiser_tflops": flop / sum(ms) / 1e9,
+        ct[label] = {
+            "mel_buckets": [int(b["mels"].shape[1]) for b in batches],
             "losses": losses, "lsm_probs_last": probs_seen[-1].tolist()}
-        timing[label]["share_of_bf16_peak"] = (
-            timing[label]["denoiser_tflops"] * 1e12 / PEAK_BF16_FLOPS)
-        split, loss_i, idx, noise, gstate = instrumented_step(
-            model, cfg, opt, state, batches[-1], probs_seen[-1], gen, cdt)
-        gen.set_state(gstate)
-        _, m_ref = step(state, batches[-1], probs_seen[-1], 0.95, gen,
-                        indices=idx, noise=noise)
-        check(f"{label} instrumented step loss", torch.tensor(loss_i),
-              m_ref["loss"].cpu(), dict(rtol=1e-3, atol=1e-3))
-        timing[label]["split_ms"] = split
-        timing[label]["profile"] = device_busy(
-            lambda: step(state, batches[-1], probs_seen[-1], 0.95, gen))
-        t = timing[label]
-        log(f"  CT B=32 {label}: median {med:.2f} ms/step ({t['steps_per_s']:.2f}"
-            f" steps/s) over {len(ms)} steps, mel buckets "
-            f"{sorted(set(t['mel_buckets']))}; peak {t['peak_mem_gib']:.2f} "
-            f"GiB; denoiser {t['denoiser_tflops']:.1f} TFLOP/s "
-            f"({t['share_of_bf16_peak']:.1%} of the bf16 peak); split "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
-            + f"; LSM probs after warm-up {np.round(t['lsm_probs_last'], 4)}"
-            f"; profiled: {t['profile']}")
-    out["timed"] = timing
+        log(f"  CT B=32 {label}: {len(batches)} steps, mel buckets "
+            f"{ct[label]['mel_buckets']}, losses "
+            f"{np.round(losses, 4).tolist()}, LSM probs "
+            f"{np.round(probs_seen[-1], 4).tolist()}")
+    out["ct_b32"] = ct
 
     # 3. one CD, progdist and EDM step each, the CT params as teacher
     teacher = {k: v.detach().clone() for k, v in state.params.items()}
@@ -1219,18 +976,14 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
         probs = np.full(scales - 1 + (mode == "progdist"),
                         1.0 / (scales - 1 + (mode == "progdist")),
                         np.float32)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        _, m = step(st, batches[3], probs, 0.95, gen)
+        _, m = step(st, batches[-1], probs, 0.95, gen)
         loss = float(m["loss"])
         if not np.isfinite(loss):
             raise AssertionError(f"{mode} loss {loss}")
         out[f"{mode}_loss"] = loss
-        out[f"{mode}_step_ms"] = (time.perf_counter() - t1) * 1e3
         log(f"  {mode} bf16 B=32 step"
             + (" (plain EDM scalings)" if mode == "edm" else "")
-            + f": loss {loss:.4f}, "
-            f"{out[f'{mode}_step_ms']:.1f} ms with its first call")
+            + f": loss {loss:.4f}")
     del model, batches, state, teacher
 
     # 4. the journey through the CLIs on the card
@@ -1240,15 +993,10 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
     base = ["--model", "consistency_training", "--dataset", "LJSpeech",
             "--config_root", config_root, "--schedule_sampler",
             "loss-second-moment", "--device", device]
-    walls = {}
-    t1 = time.perf_counter()
     r1 = train(base + ["--total_step", "4"])
-    walls["train_to_4_s"] = time.perf_counter() - t1
     tee = Tee(sys.stdout)
-    t1 = time.perf_counter()
     with redirect_stdout(tee):
         r2 = train(base + ["--total_step", "6", "--restore_step", "-1"])
-    walls["resume_to_6_s"] = time.perf_counter() - t1
     if "auto-resume: step 4" not in tee.text() or r2["start_step"] != 4:
         raise AssertionError("the CLI did not resume from step 4")
     a, b = r1["state"], r2["restored"]
@@ -1267,11 +1015,9 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
     del r1, r2, a, b, trees
     zero_launches(counters)
     out_dir = os.path.join(work, "synth")
-    t1 = time.perf_counter()
     synthesize(["--mode", "single", "--text", TEXT, "--dataset", "LJSpeech",
                 "--config_root", config_root, "--restore_step", "6", "--T",
                 "1", "--out_dir", out_dir, "--device", device])
-    walls["synthesize_s"] = time.perf_counter() - t1
     launches = {fn.__name__: mrf_launches(fn) for fn in counters}
     if [mrf_launches(fn) for fn in counters] != [3, 1]:
         raise AssertionError(f"synthesis from the checkpoint launched "
@@ -1282,14 +1028,12 @@ def training_phase(counters, root: str, device: str = "cuda") -> dict:
             or len(wav) != len(mel) * cfg.stft.hop_length):
         raise AssertionError(f"synthesis output: mel {mel.shape}, wav "
                              f"{len(wav)}")
-    out["cli_walls_s"] = walls
     out["cli_losses"] = losses
     out["launches"] = launches
-    log(f"  CLIs on the card: train to step 4 {walls['train_to_4_s']:.1f} s, "
-        f"auto-resume to 6 {walls['resume_to_6_s']:.1f} s (restored state "
-        f"equal to the saved one), synthesize --restore_step 6 "
-        f"{walls['synthesize_s']:.1f} s ({len(mel)} frames, MRF launches "
-        f"{launches}); losses {np.round(losses, 3).tolist()}")
+    log(f"  CLIs on the card: train to step 4, auto-resume to 6 (restored "
+        f"state equal to the saved one), synthesize --restore_step 6 "
+        f"({len(mel)} frames, MRF launches {launches}); losses "
+        f"{np.round(losses, 3).tolist()}")
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -1323,68 +1067,6 @@ def mel_errors(name, a, b) -> dict:
     np.testing.assert_allclose(np.exp(a), np.exp(b), **MEL_LIN_TOL,
                                err_msg=name)
     return errs
-
-
-class FrontEndTimer:
-    """Wraps a Preprocessor's mel front-end, pitch tracker and CWT to time
-    them per utterance: the front-end by CUDA events (on the card) and the
-    host clock, the rest by the host clock."""
-
-    def __init__(self, pre, module, cuda: bool):
-        self.stft, self.cuda, self.module = pre.stft, cuda, module
-        self.rows, self.cur = [], None
-        pre.stft = self
-        utt, cwt = pre.process_utterance, pre.get_f0cwt
-        self.get_pitch = module.get_pitch
-
-        def timed(fn, key):
-            def run(*a, **k):
-                t0 = time.perf_counter()
-                out = fn(*a, **k)
-                self.cur[key] += (time.perf_counter() - t0) * 1e3
-                return out
-            return run
-
-        def utterance(*a, **k):
-            self.cur = {"frontend_ms": 0.0, "frontend_device_ms": 0.0,
-                        "pitch_ms": 0.0, "cwt_ms": 0.0}
-            t0 = time.perf_counter()
-            out = utt(*a, **k)
-            self.cur["utterance_ms"] = (time.perf_counter() - t0) * 1e3
-            self.rows.append(self.cur)
-            return out
-
-        pre.process_utterance = utterance
-        pre.get_f0cwt = timed(cwt, "cwt_ms")
-        module.get_pitch = timed(self.get_pitch, "pitch_ms")
-
-    def __call__(self, wav):
-        import torch
-
-        t0 = time.perf_counter()
-        if self.cuda:
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-        out = self.stft(wav)     # host -> card, STFT + mel, card -> host
-        if self.cuda:
-            ev1.record()
-            ev1.synchronize()
-            self.cur["frontend_device_ms"] += ev0.elapsed_time(ev1)
-        self.cur["frontend_ms"] += (time.perf_counter() - t0) * 1e3
-        return out
-
-    def restore(self):
-        self.module.get_pitch = self.get_pitch
-
-    def summary(self) -> dict:
-        rows = self.rows
-        out = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
-        out["host_ms"] = statistics.median(
-            r["utterance_ms"] - r["frontend_ms"] for r in rows)
-        out["utterances"] = len(rows)
-        return {f"median_{k}" if k != "utterances" else k: v
-                for k, v in out.items()}
 
 
 def compare_preprocessed(a: str, b: str, exact: bool) -> dict:
@@ -1475,66 +1157,40 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
     cuda = torch.device(device).type == "cuda"
     work = os.path.join(root, "build", "chip_smoke_data")
     shutil.rmtree(work, ignore_errors=True)
-    out, walls = {}, {}
+    out = {}
 
     # 1. the corpus and its config root
-    t0 = time.perf_counter()
     cfg_root = gen_corpus(["--out", work, "--n", str(n_utts), "--val_size",
                            str(val_size), "--batch_size", str(batch_size),
                            "--seed", "1234"] + (["--tiny"] if tiny else []))
-    walls["gen_corpus_s"] = time.perf_counter() - t0
     pre = os.path.join(work, "pre")
     raw = os.path.join(work, "raw", "SYN")
 
     # 2. preprocess: the CLI on the card, then card / CPU / card x 2 workers
     random.seed(0)
-    t0 = time.perf_counter()
     tr, va = preprocess(["--dataset", "LJSpeech", "--config_root", cfg_root,
                          "--device", device])
-    walls["preprocess_cli_s"] = time.perf_counter() - t0
     if (len(tr), len(va)) != (n_utts - val_size, val_size):
         raise AssertionError(f"preprocess split {len(tr)} / {len(va)}")
     cfg = load_configs("LJSpeech", cfg_root)
-    runs, timers = {}, {}
-    for name, dev_, workers in (("card", device, 1), ("cpu", "cpu", 1),
-                                ("card_workers2", device, 2)):
+    runs = {"card": (device, 1), "cpu": ("cpu", 1),
+            "card_workers2": (device, 2)}
+    for name, (dev_, workers) in runs.items():
         d = os.path.join(work, f"pre_{name}")
         shutil.copytree(os.path.join(pre, "TextGrid"),
                         os.path.join(d, "TextGrid"))
         c = dataclasses.replace(cfg, data=dataclasses.replace(
             cfg.data, preprocessed_path=d))
         p = pp_mod.Preprocessor(c, device=dev_)
-        timer = (FrontEndTimer(p, pp_mod, cuda and dev_ != "cpu")
-                 if workers == 1 else None)
         random.seed(0)
-        t0 = time.perf_counter()
-        try:
-            p.build_from_path(workers=workers)
-        finally:
-            if timer is not None:
-                timer.restore()
-        wall = time.perf_counter() - t0
-        runs[name] = {"wall_s": wall, "utterances_per_s": n_utts / wall}
-        if timer is not None:
-            runs[name].update(timer.summary())
-        msg = f"  preprocess {name}: {n_utts} utterances in {wall:.2f} s " \
-            f"({n_utts / wall:.2f} utt/s)"
-        if timer is not None:
-            s = runs[name]
-            msg += (f"; per utterance (median): front-end "
-                    f"{s['median_frontend_ms']:.3f} ms host clock"
-                    + (f", {s['median_frontend_device_ms']:.3f} ms CUDA "
-                       f"events" if timer.cuda else "")
-                    + f"; host {s['median_host_ms']:.2f} ms (pitch tracker "
-                    f"{s['median_pitch_ms']:.2f}, CWT {s['median_cwt_ms']:.2f}"
-                    f", the rest reads, alignment and npy writes)")
-        log(msg)
+        p.build_from_path(workers=workers)
     d = {k: os.path.join(work, f"pre_{k}") for k in runs}
     errs = compare_preprocessed(d["card"], d["cpu"], exact=False)
     compare_preprocessed(d["card_workers2"], d["card"], exact=True)
-    out["preprocess"] = runs
     out["card_vs_cpu_max_abs_err"] = errs
-    log(f"  card vs CPU features: equal {list(EQUAL_KINDS)}, split and "
+    log(f"  preprocess {n_utts} utterances on the card, on the CPU and on "
+        f"the card with 2 workers; card vs CPU features: equal "
+        f"{list(EQUAL_KINDS)}, split and "
         f"speakers.json; max |err| " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items())
         + "; workers=2 bit-identical to serial on the card")
@@ -1542,10 +1198,8 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
     # 3. four bf16 CT steps on the preprocessed corpus
     common = ["--dataset", "LJSpeech", "--config_root", cfg_root,
               "--device", device]
-    t0 = time.perf_counter()
     r = train(["--model", "consistency_training", "--total_step", "4",
                "--bf16"] + common)
-    walls["train_s"] = time.perf_counter() - t0
     if len(r["losses"]) != 4 or not np.isfinite(r["losses"]).all():
         raise AssertionError(f"train losses {r['losses']}")
     out["train_losses"] = r["losses"]
@@ -1553,11 +1207,9 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
 
     # 4. batch synthesis of the val set from the latest checkpoint
     zero_launches(counters)
-    t0 = time.perf_counter()
     syn_dir = synthesize(["--mode", "batch", "--source",
                           os.path.join(pre, "val.txt"), "--restore_step",
                           "0"] + common)
-    walls["synthesize_s"] = time.perf_counter() - t0
     launches = {fn.__name__: mrf_launches(fn) for fn in counters}
     if cuda and [mrf_launches(fn) for fn in counters] != [3, 1]:
         raise AssertionError(f"batch synthesis launched {launches}, not "
@@ -1587,7 +1239,6 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
                 "--single", "--syn_root", syn_root, "--raw_folder", raw,
                 "--metrics", *METRICS, "--device", device]
 
-    t_metrics = time.perf_counter()
     procs = {k: subprocess.Popen(metrics_cmd(s), cwd=root, text=True,
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.PIPE)
@@ -1595,9 +1246,7 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
     try:
         # 6. validation losses: the CLI on the card, then card vs CPU on one
         # injected x_T
-        t0 = time.perf_counter()
         summary = evaluate(common)
-        walls["evaluate_cli_s"] = time.perf_counter() - t0
         if not np.isfinite(list(summary.values())).all():
             raise AssertionError(f"evaluate: {summary}")
         params = restore_checkpoint(cfg.train.ckpt_path)["target_model"]
@@ -1623,18 +1272,15 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
 
         # 7. the mel cache of the raw corpus, one file against the CPU
         cache = os.path.join(work, "mel_cache")
-        t0 = time.perf_counter()
         if get_mel_cache(["--wav_dir", raw, "--out_dir", cache,
                           "--device", device]) != n_utts:
             raise AssertionError("get_mel_cache skipped files")
-        walls["get_mel_cache_s"] = time.perf_counter() - t0
         wav = load_wav(os.path.join(raw, "syn0000.wav"))
         cpu_mel = MelSpectrogram(device="cpu")(wav)[0].T
         out["mel_cache_vs_cpu"] = mel_errors(
             "mel cache syn0000", np.load(os.path.join(
                 cache, "syn0000-mel.npy")), cpu_mel)
-        log(f"  get_mel_cache: {n_utts} files in "
-            f"{walls['get_mel_cache_s']:.2f} s; syn0000 vs CPU "
+        log(f"  get_mel_cache: {n_utts} files; syn0000 vs CPU "
             f"{out['mel_cache_vs_cpu']}")
 
         # 5, continued
@@ -1651,7 +1297,6 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    walls["metrics_s"] = time.perf_counter() - t_metrics
     if not all(np.isfinite(v) for s in scores.values() for v in s.values()):
         raise AssertionError(f"non-finite metrics: {scores}")
     if scores["raw_vs_raw"]["mcd"] != 0.0:
@@ -1659,8 +1304,7 @@ def data_phase(counters, root: str, device: str = "cuda", n_utts: int = 72,
     out["metrics"] = scores
     log(f"  all_metrics over {len(val)} pairs: synthesized vs raw "
         f"{scores['syn_vs_raw']}; raw vs raw {scores['raw_vs_raw']} "
-        f"({walls['metrics_s']:.1f} s, beside steps 6-7)")
-    out["walls_s"] = walls
+        f"(beside steps 6-7)")
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -1714,8 +1358,8 @@ def write_serve_config(work: str, tiny: bool) -> str:
     return root
 
 
-def serve_phase(counters, root: str, rtf_b8: float | None = None,
-                device: str = "cuda", tiny: bool = False) -> dict:
+def serve_phase(counters, root: str, device: str = "cuda",
+                tiny: bool = False) -> dict:
     """Phase 8 at full LJSpeech width: reference-format vocoder files
     written from seeded random port modules and read back (one through
     ``cli.convert_checkpoint``); the HTTP server over a bf16
@@ -1757,15 +1401,14 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
 
     log("# phase 8: serving and reference checkpoints (LJSpeech config, "
         "random weights)")
-    t_phase = time.perf_counter()
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     work = os.path.join(root, "build", "chip_smoke_serve")
     shutil.rmtree(work, ignore_errors=True)
     cfg_root = write_serve_config(work, tiny)
     cfg = load_configs("LJSpeech", cfg_root)
-    hop, sr = cfg.stft.hop_length, cfg.stft.sampling_rate
-    out, walls = {}, {}
+    hop = cfg.stft.hop_length
+    out = {}
     zero_launches(counters)
 
     def launches():
@@ -1811,9 +1454,7 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
     synth = CountingSynth(Synthesizer(cfg, model, v1, T=1, device=device))
     direct = TTSService(synth, cfg, max_batch=1)
     batched = TTSService(synth, cfg, max_batch=8, batch_window_ms=20.0)
-    t0 = time.perf_counter()
     out["warmup_calls"] = batched.warmup(log=lambda m: log("  " + m))
-    walls["warmup_B1_to_B8_s"] = time.perf_counter() - t0
     servers = [serve(svc, "127.0.0.1", 0) for svc in (direct, batched)]
     threads = [threading.Thread(target=h.serve_forever, daemon=True)
                for h in servers]
@@ -1835,18 +1476,14 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
             raise AssertionError(f"healthz: {health}")
         out["healthz_device"] = health["device"]
 
-        # 10 sequential requests; then the served wav against the direct
-        # path (alone in the batching window, and as served PCM)
-        lat, rtfs, client = [], [], []
-        for seed in range(10):
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(post(url_d, {"text": TEXT,
-                                                     "seed": seed}),
-                                        timeout=300) as r:
-                body = r.read()
-                lat.append(float(r.headers["X-Latency-Ms"]))
-                rtfs.append(float(r.headers["X-RTF"]))
-            client.append((time.perf_counter() - t0) * 1e3)
+        # a request; then the served wav against the direct path (alone in
+        # the batching window, and as served PCM)
+        with urllib.request.urlopen(post(url_d, {"text": TEXT, "seed": 9}),
+                                    timeout=300) as r:
+            body = r.read()
+            headers = {"X-Latency-Ms", "X-RTF"} - set(r.headers)
+        if headers:
+            raise AssertionError(f"a served wav without {headers}")
         toks = direct.tokens(TEXT)
         _, lens, wav = synth([toks], seed=9)
         ref = wav[0][: int(lens[0]) * hop]
@@ -1859,44 +1496,22 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
         lsb = int(np.abs(pcm - np.frombuffer(pcm16(ref), "<i2")).max())
         if lsb > 1:
             raise AssertionError(f"served PCM differs by {lsb} LSB")
-        out["B1_latency_ms_median"] = statistics.median(lat)
-        out["B1_rtf_median"] = statistics.median(rtfs)
-        out["B1_client_ms_median"] = statistics.median(client)
-        out["B1_audio_s"] = len(ref) / sr
-        log(f"  10 sequential POST /tts ({len(toks)} tokens, "
-            f"{out['B1_audio_s']:.3f} s of audio): median X-Latency-Ms "
-            f"{out['B1_latency_ms_median']:.1f}, X-RTF "
-            f"{out['B1_rtf_median']:.5f}, client wall "
-            f"{out['B1_client_ms_median']:.1f} ms; served vs direct "
+        log(f"  POST /tts ({len(toks)} tokens): served vs direct "
             f"{out['err_served_vs_direct']:.3e}, PCM within {lsb} LSB")
 
-        # the same B=1 call without HTTP, in turns: in this thread, in one
-        # persistent thread, and in a thread of its own (as the server
-        # runs each request)
-        def one_call(seed):
-            t0 = time.perf_counter()
-            synth([toks], seed=seed)
-            return (time.perf_counter() - t0) * 1e3
-
-        def own_thread(seed):
-            box = []
-            t = threading.Thread(target=lambda: box.append(one_call(seed)))
-            t.start()
-            t.join(timeout=120)
-            return box[0]
-
-        calls = {"main_thread": [], "persistent_thread": [],
-                 "own_thread": []}
+        # the same B=1 call without HTTP: in this thread, in one persistent
+        # thread, and in a thread of its own (as the server runs each
+        # request)
+        synth([toks], seed=0)
         with ThreadPoolExecutor(1) as pool:
-            for seed in range(10):
-                calls["main_thread"].append(one_call(seed))
-                calls["persistent_thread"].append(
-                    pool.submit(one_call, seed).result())
-                calls["own_thread"].append(own_thread(seed))
-        out["B1_call_ms_median"] = {k: statistics.median(v)
-                                    for k, v in calls.items()}
-        log("  the B=1 call alone, median ms: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in out["B1_call_ms_median"].items()))
+            pool.submit(synth, [toks], seed=0).result()
+        box = []
+        t = threading.Thread(target=lambda: box.append(synth([toks], seed=0)))
+        t.start()
+        t.join(timeout=120)
+        if not box:
+            raise AssertionError("the B=1 call in a thread of its own did "
+                                 "not complete")
 
         # 8 concurrent requests through the batching window
         bodies = [None] * 8
@@ -1908,57 +1523,41 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
                 bodies[i] = r.read()
 
         workers = [threading.Thread(target=one, args=(i,)) for i in range(8)]
-        t0 = time.perf_counter()
         for t in workers:
             t.start()
         for t in workers:
             t.join(timeout=300)
-        wall = time.perf_counter() - t0
         if any(b is None for b in bodies) or any(t.is_alive()
                                                  for t in workers):
             raise AssertionError("a concurrent request did not complete")
         hist = dict(batched.batch_hist)
         if max(hist) < 2:
             raise AssertionError(f"no coalesced batch: {hist}")
-        audio = sum((len(b) - 44) // 2 for b in bodies) / sr
-        out["concurrent8_wall_s"] = wall
-        out["concurrent8_audio_s_per_wall_s"] = audio / wall
         out["batch_hist"] = {str(k): v for k, v in sorted(hist.items())}
-        log(f"  8 concurrent requests (max_batch 8, window 20 ms): wall "
-            f"{wall * 1e3:.1f} ms, {audio / wall:.2f} s of audio per s, "
-            f"batches {out['batch_hist']}")
+        log(f"  8 concurrent requests (max_batch 8, window 20 ms): batches "
+            f"{out['batch_hist']}")
 
-        # a stream over three sentences: time to first byte vs the whole
-        t0 = time.perf_counter()
+        # a stream over three sentences
         with urllib.request.urlopen(post(url_d, {
                 "text": " ".join(SENTENCES), "seed": 3, "stream": 1}),
                 timeout=300) as r:
             head = r.read(44)
-            ttfb = time.perf_counter() - t0
             rest = r.read()
-        total = time.perf_counter() - t0
         if head[:4] != b"RIFF" or head[8:12] != b"WAVE" or not rest:
             raise AssertionError("stream: not a RIFF/WAVE stream")
-        out["stream_ttfb_ms"], out["stream_total_ms"] = ttfb * 1e3, total * 1e3
-        out["stream_audio_s"] = (len(head) - 44 + len(rest)) / 2 / sr
-        log(f"  stream=1, 3 sentences: first byte after {ttfb * 1e3:.1f} ms, "
-            f"all {out['stream_audio_s']:.3f} s of audio after "
-            f"{total * 1e3:.1f} ms")
+        log(f"  stream=1, 3 sentences: a RIFF/WAVE stream of {len(rest)} "
+            f"bytes after its header")
 
         # a text over the token budget takes the chunked path
         taken = []
         long_path = direct._synthesize_long
         direct._synthesize_long = lambda *a: taken.append(1) or long_path(*a)
-        wav_l, _, lat_l, _ = direct.synthesize(" ".join(SENTENCES * 2),
-                                               seed=2)
+        wav_l = direct.synthesize(" ".join(SENTENCES * 2), seed=2)[0]
         del direct._synthesize_long
         if taken != [1] or not np.isfinite(wav_l).all():
             raise AssertionError("long text did not take the chunked path")
-        out["long_latency_ms"], out["long_audio_s"] = lat_l * 1e3, len(
-            wav_l) / sr
         log(f"  long text ({len(direct.tokens(' '.join(SENTENCES * 2)))} "
-            f"tokens > budget): chunked, {len(wav_l) / sr:.3f} s of audio in "
-            f"{lat_l * 1e3:.1f} ms")
+            f"tokens > budget): chunked, {len(wav_l)} samples")
         with urllib.request.urlopen(url_d + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
     finally:
@@ -1988,28 +1587,23 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
             phones = " ".join(rs.choice(ARPABET, rs.randint(60, 97)))
             f.write(f"rtf{i:02d}|LJSpeech|{{{phones}}}|raw\n")
     before = launches()
-    t0 = time.perf_counter()
     res = p_rtf(["--dataset", "LJSpeech", "--config_root", cfg_root,
                  "--source", meta, "--batch_size", "8", "--vocoder_ckpt",
                  v1_npz, "--out", os.path.join(work, "rtf"), "--device",
                  device])
-    walls["p_rtf_cm_s"] = time.perf_counter() - t0
     expect_launches("p_rtf_cm (3 calls)", before, [9, 3])
     if not np.isfinite(res["mean_rtf"]):
         raise AssertionError(f"p_rtf_cm: {res}")
-    out["p_rtf_cm"] = res
-    log(f"  cli.p_rtf_cm, 16 utterances at batch 8: mean_rtf "
-        f"{res['mean_rtf']:.6f} ({res['audio_seconds']:.2f} s of audio); "
-        f"phase 3's B=8 T=1 RTF {rtf_b8}")
+    out["p_rtf_cm_batches"] = res["batches"]
+    log(f"  cli.p_rtf_cm, 16 utterances at batch 8: {res['batches']} "
+        f"batches, a finite mean_rtf")
 
     # 5. cli.synthesize with the V2 .pth.tar, with MelGAN, with --lang zh
     base = ["--mode", "single", "--dataset", "LJSpeech", "--config_root",
             cfg_root, "--device", device]
     before = launches()
-    t0 = time.perf_counter()
     synthesize(base + ["--text", TEXT, "--vocoder_ckpt", gens["v2"][1],
                        "--out_dir", os.path.join(work, "v2")])
-    walls["cli_v2_s"] = time.perf_counter() - t0
     out["v2_cli_launches"] = expect_launches("V2 CLI", before, [4, 0])
     v2 = load_hifigan(gens["v2"][1], cfg)
     s2 = Synthesizer(cfg, model, v2, T=1, device=device)
@@ -2032,11 +1626,9 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
         f"{out['v2_cli_launches']}, routes {out['v2_routes']}; wav vs the "
         f"plain V2 generator {out['err_v2_vs_plain']:.3e}")
 
-    t0 = time.perf_counter()
     synthesize(base + ["--text", TEXT, "--vocoder", "melgan",
                        "--vocoder_ckpt", melgan_pt, "--out_dir",
                        os.path.join(work, "melgan")])
-    walls["cli_melgan_s"] = time.perf_counter() - t0
     mel_m = np.load(os.path.join(work, "melgan", "single-mel.npy"))
     log_mel = torch.from_numpy(mel_m[None] / np.log(10.0))
     with torch.no_grad():
@@ -2063,9 +1655,7 @@ def serve_phase(counters, root: str, rtf_b8: float | None = None,
     if cuda and min(out["launches"].values()) == 0:
         raise AssertionError(f"a kernel never ran in phase 8: "
                              f"{out['launches']}")
-    walls["phase_s"] = time.perf_counter() - t_phase
-    out["walls_s"] = walls
-    log(f"# phase 8 launches {out['launches']}, {walls['phase_s']:.1f} s")
+    log(f"# phase 8 launches {out['launches']}")
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -2129,125 +1719,13 @@ def to_device(tree, dev):
     return tree.to(dev) if torch.is_tensor(tree) else tree
 
 
-def timed_steps(fn, batches, warm: int = 2) -> dict:
-    """Median ms (CUDA events) of ``fn(batch)`` over ``batches`` after
-    ``warm`` warm-ups, steps/s and peak GiB."""
-    import torch
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ms = []
-    for i, b in enumerate(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(b)
-        end.record()
-        torch.cuda.synchronize()
-        if i >= warm:
-            ms.append(start.elapsed_time(end))
-    med = statistics.median(ms)
-    return {"median_ms": med, "steps_per_s": 1e3 / med, "ms": ms,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-
-
-def hifigan_halves(step, gen, disc, stft, cfg, state, wavs) -> dict:
-    """One GAN step split with CUDA events into the D half (G forward, D
-    on real and detached fake, D update) and the G half (D on real and
-    fake through the updated D, the mel loss, G backward and update),
-    composed of the step's own pieces; its losses are checked against
-    ``step``'s."""
-    import torch
-    from torch.func import functional_call
-
-    from cmtts_tpu_torch.models.hifigan_disc import (
-        discriminator_loss,
-        feature_matching_loss,
-        generator_adv_loss,
-    )
-    from cmtts_tpu_torch.train.hifigan_trainer import make_optims
-
-    tx_g, tx_d = make_optims(cfg)
-    n = wavs.shape[1] // gen.cfg.hop_length
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    with torch.no_grad():
-        mels = stft.mel_frames(wavs, n)
-    gp = {k: v.detach().requires_grad_(True) for k, v in state["gen"].items()}
-    y_hat = functional_call(gen, gp, (mels,))
-    dp = {k: v.detach().requires_grad_(True)
-          for k, v in state["disc"].items()}
-    d_loss = discriminator_loss(functional_call(disc, dp, (wavs,)),
-                                functional_call(disc, dp, (y_hat.detach(),)))
-    d_grads = torch.autograd.grad(d_loss, list(dp.values()))
-    new_d, _ = tx_d.update(dict(zip(dp, d_grads)), state["opt_d"],
-                           state["disc"])
-    ev[1].record()
-    with torch.no_grad():
-        real = functional_call(disc, new_d, (wavs,))
-    fake = functional_call(disc, new_d, (y_hat,))
-    g_loss = (generator_adv_loss(fake)
-              + cfg.lambda_fm * feature_matching_loss(real, fake)
-              + cfg.lambda_mel * (stft.mel_frames(y_hat, n) - mels).abs()
-              .mean())
-    g_grads = torch.autograd.grad(g_loss, list(gp.values()))
-    tx_g.update(dict(zip(gp, g_grads)), state["opt_g"], state["gen"])
-    ev[2].record()
-    torch.cuda.synchronize()
-    _, m = step(state, wavs)
-    check("split step's losses vs the step's",
-          torch.stack([d_loss.detach(), g_loss.detach()]).cpu(),
-          torch.stack([m["d_loss"], m["g_loss"]]).cpu(),
-          dict(rtol=1e-3, atol=1e-3))
-    return {"d_half_ms": ev[0].elapsed_time(ev[1]),
-            "g_half_ms": ev[1].elapsed_time(ev[2])}
-
-
-def hifigan_step_flop(gen, disc, B: int, T: int) -> int:
-    """FLOP of the convolutions of one GAN step at B x T samples, from the
-    modules' layer shapes, with g and d the FLOP of one G and one D
-    forward: G forward (g) and backward (2 g); D on real and fake (2 d)
-    and backward into both its weights and inputs (4 d); through the
-    updated D, real without grad (d), fake (d) and its input gradient
-    (d): 3 g + 9 d."""
-    import torch
-
-    from cmtts_tpu_torch.models.hifigan_disc import WNConv
-
-    def conv_flop(module, x):
-        total = 0
-
-        def hook(m, inp, out):
-            nonlocal total
-            if isinstance(m, torch.nn.ConvTranspose1d):
-                # each input sample meets the whole (Cin, Cout, k) kernel
-                total += 2 * inp[0].numel() // inp[0].shape[1] \
-                    * m.weight.numel()
-            elif isinstance(m, (torch.nn.Conv1d, WNConv)):
-                w = m.v if isinstance(m, WNConv) else m.weight
-                total += 2 * out.numel() // out.shape[1] * w.numel()
-
-        hooks = [m.register_forward_hook(hook) for m in module.modules()]
-        with torch.no_grad():
-            module(x)
-        for h in hooks:
-            h.remove()
-        return total
-
-    dev = next(gen.parameters()).device
-    g = conv_flop(gen, torch.zeros(B, T // gen.cfg.hop_length,
-                                   gen.cfg.num_mels, device=dev))
-    d = conv_flop(disc, torch.zeros(B, T, device=dev))
-    return 3 * g + 9 * d
-
-
 def trainers_phase(counters, root: str, device: str = "cuda",
                    tiny: bool = False) -> dict:
     """Phase 9: the vocoder and speaker-encoder trainers on ``device``,
     under ``build/chip_smoke_trainers`` (removed at the end): a
     multi-speaker formant corpus from ``cli.gen_corpus``; one HiFi-GAN
-    GAN step and one GE2E step on the card against the CPU; timed steps
-    at the published sizes; ``cli.train_hifigan`` (train, resume, paired
+    GAN step and one GE2E step on the card against the CPU; one step
+    each at the published sizes; ``cli.train_hifigan`` (train, resume, paired
     fine-tuning) and ``cli.train_ge2e``; the trained generator vocoding
     through the MRF kernels, and the trained encoder embedding through
     ``PreDefinedEmbedder``.  ``tiny`` (a CPU rehearsal) narrows every
@@ -2290,25 +1768,22 @@ def trainers_phase(counters, root: str, device: str = "cuda",
 
     log("# phase 9: the vocoder and speaker-encoder trainers (formant "
         "corpus, flax-like init)")
-    t_phase = time.perf_counter()
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     work = os.path.join(root, "build", "chip_smoke_trainers")
     shutil.rmtree(work, ignore_errors=True)
-    out, walls = {}, {}
+    out = {}
     zero_launches(counters)
 
     # 1. the corpus: 8 speakers x 12 utterances, 2 held out
-    t0 = time.perf_counter()
     gen_corpus(["--out", os.path.join(work, "corpus"), "--speakers", "8",
                 "--utts_per_speaker", "12", "--holdout", "2"])
     raw = os.path.join(work, "corpus", "raw")
     speakers = sorted(d for d in os.listdir(raw)
                       if os.path.isdir(os.path.join(raw, d)))
-    walls["corpus_s"] = time.perf_counter() - t0
     log(f"  corpus: {len(speakers)} speakers under raw/ "
         f"({sum(len(os.listdir(os.path.join(raw, s))) // 2 for s in speakers)}"
-        f" utterances) in {walls['corpus_s']:.1f} s")
+        f" utterances)")
 
     # 2. one f32 GAN step at B=2, card vs CPU, from the same weights/crop
     seg = 2048 if tiny else 8192
@@ -2323,11 +1798,7 @@ def trainers_phase(counters, root: str, device: str = "cuda",
         gen, disc, state = gen.to(on), disc.to(on), to_device(state, on)
         step = make_hifigan_train_step(
             gen, disc, MelSpectrogram(device=on), cfg2)
-        t0 = time.perf_counter()
         res[name] = step(state, wavs2.to(on))
-        if on.type == "cuda":
-            torch.cuda.synchronize()
-        walls[f"gan_step_b2_{name}_s"] = time.perf_counter() - t0
     (s_cpu, m_cpu), (s_gpu, m_gpu) = res["cpu"], res["card"]
     errs = {k: check(f"GAN step {k}, card vs CPU", m_gpu[k].cpu(), m_cpu[k],
                      TRAIN_F32_TOL) for k in m_cpu}
@@ -2340,48 +1811,26 @@ def trainers_phase(counters, root: str, device: str = "cuda",
     log(f"  HiFi-GAN f32 step B=2 x {seg} (generator width "
         f"{small.upsample_initial_channel}, discriminators / "
         f"{16 if tiny else 4}), card vs CPU max |err|: "
-        + ", ".join(f"{k} {v}" for k, v in errs.items())
-        + f"; CPU {walls['gan_step_b2_cpu_s']:.1f} s")
+        + ", ".join(f"{k} {v}" for k, v in errs.items()))
     del res, s_cpu, s_gpu
 
-    # 3. the published sizes: V1 + paper MPD/MSD, B=16 x 8192, f32
+    # 3. one step at the published sizes: V1 + paper MPD/MSD, B=16 x 8192,
+    # f32
     B = 2 if tiny else 16
     cfg = HiFiGANTrainConfig(segment_size=seg, batch_size=B)
     state, gen, disc = init_hifigan_train(
         cfg, small if tiny else HiFiGANConfig(),
         disc_config(16 if tiny else 1), dev)
-    stft = MelSpectrogram(device=dev)
-    step = make_hifigan_train_step(gen, disc, stft, cfg)
-    rng = np.random.RandomState(1)
-    batches = [torch.from_numpy(sampler.sample(rng, B)).to(dev)
-               for _ in range(12)]
-    hold = {"state": state}
-
-    def gan_step(wavs):
-        hold["state"], hold["m"] = step(hold["state"], wavs)
-
-    if cuda:
-        t = timed_steps(gan_step, batches)
-        t["tflop_per_step"] = hifigan_step_flop(gen, disc, B, seg) / 1e12
-        t["tflops"] = t["tflop_per_step"] * 1e3 / t["median_ms"]
-        t["split_ms"] = hifigan_halves(step, gen, disc, stft, cfg,
-                                       hold["state"], batches[-1])
-        t["profile"] = device_busy(lambda: step(hold["state"], batches[-1]))
-        losses = {k: float(v) for k, v in hold["m"].items()}
-        if not all(np.isfinite(list(losses.values()))):
-            raise AssertionError(f"GAN losses {losses}")
-        t["last_losses"] = losses
-        out["gan_published"] = t
-        log(f"  HiFi-GAN V1 + paper MPD/MSD, f32 B={B} x {seg}: median "
-            f"{t['median_ms']:.1f} ms/step ({t['steps_per_s']:.2f} steps/s)"
-            f" over {len(t['ms'])} steps; D half {t['split_ms']['d_half_ms']:.1f}"
-            f" ms, G half {t['split_ms']['g_half_ms']:.1f} ms; peak "
-            f"{t['peak_mem_gib']:.2f} GiB; convolutions "
-            f"{t['tflop_per_step']:.2f} TFLOP a step = {t['tflops']:.1f} "
-            f"TFLOP/s; profiled: {t['profile']}; losses {losses}")
-    else:
-        gan_step(batches[0])
-    del state, gen, disc, step, batches, hold
+    step = make_hifigan_train_step(gen, disc, MelSpectrogram(device=dev), cfg)
+    wavs = torch.from_numpy(sampler.sample(np.random.RandomState(1), B))
+    _, m = step(state, wavs.to(dev))
+    losses = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"GAN losses {losses}")
+    out["gan_published"] = {"batch": [B, seg], "losses": losses}
+    log(f"  HiFi-GAN V1 + paper MPD/MSD, f32 B={B} x {seg}: one step, "
+        f"losses {losses}")
+    del state, gen, disc, step, wavs, m
 
     # 4. cli.train_hifigan: train to 4, resume to 6, two paired steps
     hw = os.path.join(work, "hifigan")
@@ -2389,10 +1838,8 @@ def trainers_phase(counters, root: str, device: str = "cuda",
     if tiny:
         flags += ["--upsample_initial_channel", "32", "--disc_scale", "16",
                   "--segment_size", str(seg), "--batch_size", "2"]
-    t0 = time.perf_counter()
     s4 = train_hifigan_cli(flags + ["--work_dir", hw, "--total_steps", "4",
                                     "--save_every", "2"])
-    walls["cli_train_to_4_s"] = time.perf_counter() - t0
     restored, _ = load_hifigan_train_state(hw, dev)
     trees = [(s4[w], restored[w]) for w in ("gen", "disc")] + [
         (s4[o][m], restored[o][m]) for o in ("opt_g", "opt_d")
@@ -2401,12 +1848,10 @@ def trainers_phase(counters, root: str, device: str = "cuda",
             or not all(torch.equal(a[k], b[k]) for a, b in trees for k in a)):
         raise AssertionError("the saved trainer state differs from the run's")
     tee = Tee(sys.stdout)
-    t0 = time.perf_counter()
     with redirect_stdout(tee):
         s6 = train_hifigan_cli(flags + ["--work_dir", hw, "--total_steps",
                                         "6", "--save_every", "2",
                                         "--resume"])
-    walls["cli_resume_to_6_s"] = time.perf_counter() - t0
     if ("resumed hifigan trainer at step 4" not in tee.text()
             or s6["step"] != 6 or "hifigan step 5:" not in tee.text()):
         raise AssertionError("cli.train_hifigan did not resume from step 4")
@@ -2421,24 +1866,20 @@ def trainers_phase(counters, root: str, device: str = "cuda",
         mel, _ = front(wav)
         np.save(os.path.join(mel_dir, name[:-4] + "-mel.npy"), mel.T)
     tee = Tee(sys.stdout)
-    t0 = time.perf_counter()
     with redirect_stdout(tee):
         s_ft = train_hifigan_cli(flags + [
             "--work_dir", os.path.join(work, "finetune"), "--total_steps",
             "2", "--finetune_mel_dir", mel_dir, "--init_gen_npz", gen_npz])
-    walls["cli_finetune_2_s"] = time.perf_counter() - t0
     if "generator warm-started" not in tee.text() or s_ft["step"] != 2:
         raise AssertionError("paired fine-tuning did not run")
     cli_losses = [float(x.split("g_loss=")[1].split()[0])
                   for x in tee.text().splitlines() if "g_loss=" in x]
     if len(cli_losses) != 2 or not np.isfinite(cli_losses).all():
         raise AssertionError(f"fine-tuning losses {cli_losses}")
-    log(f"  cli.train_hifigan: train to 4 {walls['cli_train_to_4_s']:.1f} s,"
-        f" --resume to 6 {walls['cli_resume_to_6_s']:.1f} s (the saved "
-        f"state equal to the run's, resumed at 4), 2 paired fine-tuning "
-        f"steps from hifigan_gen_00000006.npz on {len(os.listdir(mel_dir))} "
-        f"<base>-mel.npy files {walls['cli_finetune_2_s']:.1f} s (g_loss "
-        f"{np.round(cli_losses, 3).tolist()})")
+    log(f"  cli.train_hifigan: train to 4, --resume to 6 (the saved state "
+        f"equal to the run's, resumed at 4), 2 paired fine-tuning steps from "
+        f"hifigan_gen_00000006.npz on {len(os.listdir(mel_dir))} "
+        f"<base>-mel.npy files (g_loss {np.round(cli_losses, 3).tolist()})")
     del s4, s6, s_ft, restored, trees
 
     # 5. the trained generator through the MRF kernels (phase 3's CM)
@@ -2499,38 +1940,22 @@ def trainers_phase(counters, root: str, device: str = "cuda",
     S, U = (8, 4) if tiny else (64, 10)
     model, params, tx, opt = init_ge2e_train(0, lr, dev)
     st = make_ge2e_train_step(model, tx, S, U, GE2ETrainConfig())
-    g = torch.Generator(device=dev).manual_seed(0)
-    gbatches = [torch.rand(S * U, 160, 40, device=dev, generator=g)
-                for _ in range(12)]
-    hold = {"p": params, "o": opt}
-
-    def ge2e_step(mels):
-        hold["p"], hold["o"], hold["loss"], _ = st(hold["p"], hold["o"],
-                                                   mels)
-
-    if cuda:
-        t = timed_steps(ge2e_step, gbatches)
-        t["last_loss"] = float(hold["loss"])
-        if not np.isfinite(t["last_loss"]):
-            raise AssertionError(f"GE2E loss {t['last_loss']}")
-        out["ge2e_published"] = t
-        log(f"  GE2E S={S} x U={U} x 160 x 40, f32: median "
-            f"{t['median_ms']:.2f} ms/step ({t['steps_per_s']:.1f} steps/s) "
-            f"over {len(t['ms'])} steps; peak {t['peak_mem_gib']:.2f} GiB; "
-            f"loss {t['last_loss']:.4f}")
-    else:
-        ge2e_step(gbatches[0])
-    del model, params, opt, gbatches, hold
+    mels = torch.rand(S * U, 160, 40, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+    loss = float(st(params, opt, mels)[2])
+    if not np.isfinite(loss):
+        raise AssertionError(f"GE2E loss {loss}")
+    out["ge2e_published"] = {"speakers": S, "utterances": U, "loss": loss}
+    log(f"  GE2E S={S} x U={U} x 160 x 40, f32: one step, loss {loss:.4f}")
+    del model, params, opt, mels
 
     # 8. cli.train_ge2e with 2 held-out speakers, then the embedder
     gw = os.path.join(work, "ge2e")
     tee = Tee(sys.stdout)
-    t0 = time.perf_counter()
     with redirect_stdout(tee):
         train_ge2e_cli(["--wav_root", raw, "--work_dir", gw, "--total_steps",
                         "20", "--val_speakers", "2", "--eval_every", "10",
                         "--log_every", "10", "--device", device])
-    walls["cli_ge2e_s"] = time.perf_counter() - t0
     text = tee.text()
     g_losses = [float(v) for v in re.findall(r"step \d+: loss=(\S+)", text)]
     eers = [float(v) for v in re.findall(r"step \d+: val_eer=(\S+)", text)]
@@ -2548,7 +1973,7 @@ def trainers_phase(counters, root: str, device: str = "cuda",
         raise AssertionError(f"GE2E embedding {emb.shape}")
     out["ge2e_cli"] = {"losses": g_losses, "val_eer": eers}
     log(f"  cli.train_ge2e --val_speakers 2, 20 steps: "
-        f"{walls['cli_ge2e_s']:.1f} s, loss {np.round(g_losses, 4).tolist()},"
+        f"loss {np.round(g_losses, 4).tolist()},"
         f" val EER {np.round(eers, 4).tolist()}; ge2e_params.npy -> "
         f"ge2e_from_checkpoint and PreDefinedEmbedder (GE2E): a 3 s wav -> "
         f"{emb.shape[0]} features, norm {np.linalg.norm(emb):.4f}")
@@ -2557,9 +1982,7 @@ def trainers_phase(counters, root: str, device: str = "cuda",
     if cuda and min(out["launches"].values()) == 0:
         raise AssertionError(f"a kernel never ran in phase 9: "
                              f"{out['launches']}")
-    walls["phase_s"] = time.perf_counter() - t_phase
-    out["walls_s"] = walls
-    log(f"# phase 9 launches {out['launches']}, {walls['phase_s']:.1f} s")
+    log(f"# phase 9 launches {out['launches']}")
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -2670,7 +2093,7 @@ def parallel_rank(rank: int, world: int, port: int, work: str, device: str,
         cfg = load_configs("LJSpeech", inp["config_root"])
         ct, syn, voc = parallel_models(cfg, tiny)
         dp_mesh, tp_mesh = make_mesh(1), make_mesh(2)
-        out, walls = {}, {}
+        out = {}
         # the dp=2 CT step
         ct = ct.to(dev)
         opt = RAdam(cfg.train.cm.lr)
@@ -2678,11 +2101,9 @@ def parallel_rank(rank: int, world: int, port: int, work: str, device: str,
             {k: v.detach() for k, v in ct.named_parameters()}, opt, 3)
         step = make_train_step(ct, cfg, opt, 3, dp_group=dp_mesh.data)
         local = batch_to_device(rank_rows(inp["batch"], rank, world), dev)
-        t0 = time.perf_counter()
         state, m = step(state, local, inp["probs"], 0.95,
                         indices=inp["indices"], noise=inp["noise"])
         out["metrics"] = {k: float(v) for k, v in m.items() if v.ndim == 0}
-        walls["dp2_step_s"] = time.perf_counter() - t0
         out["params"] = {k: v.cpu() for k, v in state.params.items()}
         del state, step, ct
         # the denoiser at tp=2 against the whole one
@@ -2691,9 +2112,7 @@ def parallel_rank(rank: int, world: int, port: int, work: str, device: str,
         shard_module(split, tp_mesh.model)
         x, t, cond = (v.to(dev) for v in inp["denoiser_in"])
         with torch.no_grad():
-            t0 = time.perf_counter()
             y = split(x, t, cond)
-            walls["tp2_denoiser_s"] = time.perf_counter() - t0
             ref = whole(x, t, cond)
         out["tp2_err"] = float((y - ref).abs().max())
         out["tp2_vs_whole_ok"] = bool(torch.allclose(y, ref, **PAR_F32_TOL))
@@ -2701,16 +2120,13 @@ def parallel_rank(rank: int, world: int, port: int, work: str, device: str,
         # dp=2 synthesis through the kernels
         zero_launches((mrf.fused_mrf_stage, mrf.fused_mrf_stage_streamed))
         synth = Synthesizer(cfg, syn, voc, device=dev, dp_group=dp_mesh.data)
-        t0 = time.perf_counter()
         counts0 = graph_counts()
         out["synth"] = synth(inp["seqs"], mel_bucket=inp["mel_bucket"],
                              seed=5)
-        walls["dp2_synth_s"] = time.perf_counter() - t0
         out["graph_counts"] = {k: v - counts0[k]
                                for k, v in graph_counts().items()}
         out["launches"] = [mrf_launches(mrf.fused_mrf_stage),
                            mrf_launches(mrf.fused_mrf_stage_streamed)]
-        out["walls_s"] = walls
         torch.save(out, os.path.join(work, f"out_{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -2726,7 +2142,7 @@ def parallel_phase(counters, root: str, device: str = "cuda",
     different lengths, against the one-process step on the card; the
     20 x 256 denoiser at tp=2 against the whole one; dp=2 B=8 synthesis
     through the MRF kernels against the one-process call; (c) MBNet at its
-    widths on three 3 s wavs, card against CPU, ms an utterance; (d) both
+    widths on three 3 s wavs, card against CPU; (d) both
     LDNet configurations, card against CPU; (e) ``cli.all_metrics
     --metrics mb_mos ld_mos`` on reference-format files.  Returns the
     readings and the MRF launches; raises on any failure."""
@@ -2764,7 +2180,6 @@ def parallel_phase(counters, root: str, device: str = "cuda",
 
     log("# phase 10: ranks (data and tensor parallelism) and the MOS "
         "metric nets")
-    t_phase = time.perf_counter()
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     work = os.path.join(root, "build", "chip_smoke_parallel")
@@ -2774,7 +2189,7 @@ def parallel_phase(counters, root: str, device: str = "cuda",
                          **(dict(phonemes=(5, 20), frames=(1, 4))
                             if tiny else {}))
     cfg = load_configs("LJSpeech", cfg_root)
-    out, walls = {}, {}
+    out = {}
     zero_launches(counters)
 
     # (a) the training CLI under torch.distributed.run, in the background
@@ -2782,7 +2197,6 @@ def parallel_phase(counters, root: str, device: str = "cuda",
     env = dict(os.environ, PYTHONPATH=root + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     cli_log = open(os.path.join(work, "train_cli.log"), "w")
-    t_cli = time.perf_counter()
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", "1", "-m", "cmtts_tpu_torch.cli.train_cm",
@@ -2823,7 +2237,6 @@ def parallel_phase(counters, root: str, device: str = "cuda",
                    os.path.join(work, "inputs.pt"))
         ctx = multiprocessing.get_context("spawn")
         port = free_port()
-        t_ranks = time.perf_counter()
         # both ranks on the one card: an explicit index, not LOCAL_RANK
         rank_dev = "cuda:0" if cuda and dev.index is None else device
         ranks = [ctx.Process(target=parallel_rank,
@@ -2846,7 +2259,6 @@ def parallel_phase(counters, root: str, device: str = "cuda",
             one_launches = [mrf_launches(fn) for fn in counters]
         finally:
             codes = join_ranks(ranks, 300)
-        walls["ranks_s"] = time.perf_counter() - t_ranks
         if codes != [0, 0]:
             raise AssertionError(f"phase 10 ranks exited {codes}")
         r0, r1 = (torch.load(os.path.join(work, f"out_{r}.pt"),
@@ -2890,14 +2302,12 @@ def parallel_phase(counters, root: str, device: str = "cuda",
                             int(host["mel_lens"][:B // 2].sum()),
                             int(host["mel_lens"][B // 2:].sum())],
                         "launches": {"one_process": one_launches,
-                                     "ranks": rank_launches},
-                        "rank_walls_s": r0["walls_s"]}
+                                     "ranks": rank_launches}}
         log(f"  two gloo ranks on the {device}: dp=2 f32 CT step B={B} "
             f"(rank frames {out['ranks']['rank_row_frames']}) vs one "
             f"process, tp=2 {C}-channel denoiser vs whole, dp=2 B=8 "
             f"synthesis vs one process (MRF launches {rank_launches}); max "
-            f"|err| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-            + f"; {walls['ranks_s']:.1f} s")
+            f"|err| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
         # (c) MBNet and (d) LDNet, card against CPU
         wavs = [reference_wav(s) for s in (0, 1, 2)]
@@ -2911,14 +2321,6 @@ def parallel_phase(counters, root: str, device: str = "cuda",
         mos = {"mbnet_frames": int(specs.shape[1]),
                "mbnet_err": check("MBNet card vs CPU", s_card.cpu(), s_cpu,
                                   MOS_TOL)}
-        one = specs[:1].to(dev)
-        with torch.no_grad():
-            if cuda:
-                mos["mbnet_ms_per_utt"] = cuda_ms(lambda: mb_card(one), 5)
-            t0 = time.perf_counter()
-            for _ in range(3):
-                mb_cpu(specs[:1])
-            mos["mbnet_cpu_ms_per_utt"] = (time.perf_counter() - t0) / 3e-3
         for name, lcfg in (("v3_rnn_meannet", LDNET_V3_RNN),
                            ("v2_ffn_categorical", LDNET_V2_FFN)):
             ld_cpu = seeded_module(LDNet(lcfg), 4)
@@ -2932,10 +2334,7 @@ def parallel_phase(counters, root: str, device: str = "cuda",
                 check(f"LDNet {name} posteriors card vs CPU", p_card.cpu(),
                       p_cpu, MOS_TOL))
         log(f"  MBNet (published widths) on 3 x {specs.shape[1]} frames x "
-            f"257: card vs CPU max |err| {mos['mbnet_err']:.3e}, "
-            + (f"{mos['mbnet_ms_per_utt']:.2f} ms an utterance on the card "
-               if cuda else "")
-            + f"({mos['mbnet_cpu_ms_per_utt']:.1f} ms on the CPU); LDNet "
+            f"257: card vs CPU max |err| {mos['mbnet_err']:.3e}; LDNet "
             f"v3_rnn_meannet {mos['ldnet_v3_rnn_meannet_err']:.3e}, "
             f"v2_ffn_categorical {mos['ldnet_v2_ffn_categorical_err']:.3e}")
 
@@ -2956,12 +2355,10 @@ def parallel_phase(counters, root: str, device: str = "cuda",
                                               LDNET_V3_RNN), ld_pt)
         with open(ld_yml, "w") as f:
             yaml.safe_dump(LDNET_V3_RNN, f)
-        t0 = time.perf_counter()
         vals = all_metrics(["--single", "--syn_root", syn_dir, "--raw_folder",
                             raw_dir, "--metrics", "mb_mos", "ld_mos",
                             "--mos_ckpt", mb_pt, "--ld_ckpt", ld_pt,
                             "--ld_config", ld_yml, "--device", device])
-        walls["all_metrics_s"] = time.perf_counter() - t0
         cal = MOSCal(22050, mb_pt, ld_pt, ld_yml, device="cpu")
         want = {"mb_mos": float(np.mean([cal.get_mb_mos(w) for w in wavs])),
                 "ld_mos": float(np.mean([cal.get_ld_mos(w) for w in wavs]))}
@@ -2973,8 +2370,7 @@ def parallel_phase(counters, root: str, device: str = "cuda",
         mos["all_metrics"] = vals
         out["mos"] = mos
         log(f"  cli.all_metrics --metrics mb_mos ld_mos (reference-format "
-            f"MBNet and LDNet files): {vals}, against MOSCal on the CPU; "
-            f"{walls['all_metrics_s']:.1f} s")
+            f"MBNet and LDNet files): {vals}, against MOSCal on the CPU")
 
         # (a) the CLI's run
         rc = cli.wait(timeout=300)
@@ -2983,7 +2379,6 @@ def parallel_phase(counters, root: str, device: str = "cuda",
             cli.kill()
             cli.wait()
         cli_log.close()
-    walls["train_cli_s"] = time.perf_counter() - t_cli
     with open(os.path.join(work, "train_cli.log")) as f:
         text = f.read()
     trace = os.path.join(prof, "trace_rank0.json")
@@ -2994,7 +2389,7 @@ def parallel_phase(counters, root: str, device: str = "cuda",
                         "backend": "nccl" if cuda else "gloo"}
     log(f"  torch.distributed.run cli.train_cm (1 rank, "
         f"{out['train_cli']['backend']}) --steps_per_call 2 --profile_dir: "
-        f"8 steps in {walls['train_cli_s']:.1f} s, trace "
+        f"8 steps, trace "
         f"{out['train_cli']['trace_bytes']} bytes")
 
     out["launches"] = {fn.__name__: mrf_launches(fn) + sum(
@@ -3002,9 +2397,7 @@ def parallel_phase(counters, root: str, device: str = "cuda",
     if cuda and min(out["launches"].values()) == 0:
         raise AssertionError(f"a kernel never ran in phase 10: "
                              f"{out['launches']}")
-    walls["phase_s"] = time.perf_counter() - t_phase
-    out["walls_s"] = walls
-    log(f"# phase 10 launches {out['launches']}, {walls['phase_s']:.1f} s")
+    log(f"# phase 10 launches {out['launches']}")
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -3031,17 +2424,16 @@ def image_phase(counters, root: str, device: str = "cuda",
     """Phase 11 under ``build/chip_smoke_image`` (removed at the end): the
     ImageNet-64 consistency model (``IMAGENET64``, random weights drawn as
     flax draws them) — a forward at B=2 and a onestep sample card against
-    CPU with the zero-init layers redrawn, the timed forward at B=16
-    (TFLOP/s), images/s of onestep, multistep (0, 22, 39 of 40) and heun
-    40 at B=16, the three editors at B=4 (each output held to its
-    measurement; card against CPU at ``IMAGE_NARROW``), one f32 CT step
-    card against CPU at ``IMAGE_NARROW``, timed CT steps at B=16 and one
-    CD step; ``cli.image_sample`` from a flat ``.npz`` and from a
+    CPU with the zero-init layers redrawn, one call each of multistep (0,
+    22, 39 of 40) and heun 40 at B=2, the three editors at B=4 (each
+    output held to its measurement; card against CPU at
+    ``IMAGE_NARROW``), one f32 CT step card against CPU at
+    ``IMAGE_NARROW``, one CT and one CD step at B=16; ``cli.image_sample`` from a flat ``.npz`` and from a
     reference ``.pt`` of the same weights (equal images); the JCU
     discriminator at the LJSpeech plan on a B=16 x 1024-frame pair and
     each legacy GAN loss card against CPU; the native npy loader on a
     B=32 batch of phase 6's layout against ``np.load``.  ``tiny`` (a CPU
-    rehearsal) narrows the UNet and skips the timing.  Returns the
+    rehearsal) narrows the UNet and the B=16 steps.  Returns the
     readings; raises on any failure."""
     import copy
     import shutil
@@ -3083,7 +2475,6 @@ def image_phase(counters, root: str, device: str = "cuda",
 
     log("# phase 11: image-domain CM (ImageNet-64), GAN objectives, native "
         "loader")
-    t_phase = time.perf_counter()
     dev = torch.device(device)
     cpu = torch.device("cpu")
     cuda = dev.type == "cuda"
@@ -3092,10 +2483,6 @@ def image_phase(counters, root: str, device: str = "cuda",
     os.makedirs(work)
     out = {}
     zero_launches(counters)
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
 
     def unet_of(widths, seed):
         w = dict(widths)
@@ -3109,12 +2496,10 @@ def image_phase(counters, root: str, device: str = "cuda",
     S = full["image_size"]
 
     # 1. the UNet: parameter count, a forward and a onestep sample card vs CPU
-    t0 = time.perf_counter()
     unet_cpu = redraw_zero_layers(unet_of(full, 0), 1)
     unet = copy.deepcopy(unet_cpu).to(dev)
     n_params = sum(p.numel() for p in unet.parameters())
     out["unet_params"] = n_params
-    out["unet_build_s"] = time.perf_counter() - t0
     g = torch.Generator().manual_seed(2)
     x = torch.randn(2, 3, S, S, generator=g)
     t = torch.tensor([-500.0, 900.0])
@@ -3133,56 +2518,24 @@ def image_phase(counters, root: str, device: str = "cuda",
                               **kw).cpu()
     out["onestep_err"] = check("onestep sample B=2 vs CPU", got, ref,
                                F32_TOL)
-    log(f"  UNet {n_params:,} params (built in {out['unet_build_s']:.1f} s); "
+    log(f"  UNet {n_params:,} params; "
         f"card vs CPU forward {out['forward_err']:.3e}, onestep "
         f"{out['onestep_err']:.3e}")
     del unet_cpu
 
-    # 2. timing at B=16: the forward, then images/s of three samplers
-    if cuda:
-        B = 16
-        xb = torch.randn(B, 3, S, S, device=dev)
-        tb = torch.full((B,), 100.0, device=dev)
-        yb = torch.arange(B, device=dev) * 61 % 1000
-        with torch.no_grad():
-            fwd = timed_steps(lambda _: unet(xb, tb, yb), range(12))
-        flop = unet_flop(unet.cfg, B)
-        out["forward_B16"] = {"median_ms": fwd["median_ms"], "flop": flop,
-                              "tflops": flop / fwd["median_ms"] / 1e9,
-                              "peak_mem_gib": fwd["peak_mem_gib"]}
-        with torch.no_grad():
-            busy = device_busy(lambda: unet(xb, tb, yb), reps=2, top=8)
-        out["forward_B16"]["profile"] = busy
-        log(f"  forward B=16: {fwd['median_ms']:.2f} ms, "
-            f"{flop / 1e12:.3f} TFLOP, {flop / fwd['median_ms'] / 1e9:.2f} "
-            f"TFLOP/s (f32, TF32 off), peak {fwd['peak_mem_gib']:.2f} GiB; "
-            f"profiled: {busy['kernels_per_call']:.0f} kernels, busy "
-            f"{busy['busy_share'] or 0:.3f}; top kernels:")
-        for k in busy.get("top_kernels", []):
-            log(f"    {k['ms_per_call']:8.2f} ms x{k['launches_per_call']:.0f}"
-                f"  {k['name']}")
-        gs = torch.Generator(dev).manual_seed(3)
-        samplers = {}
-        for name, kw, n in (
-                ("onestep", dict(sampler="onestep"), 12),
-                ("multistep_0_22_39", dict(sampler="multistep", ts=IMAGE_TS,
-                                           steps=IMAGE_STEPS), 12),
-                # 79 forwards a call: one timed call, the forward being
-                # warm from the samplers before it
-                ("heun_40", dict(sampler="heun", steps=IMAGE_STEPS), 1)):
-            res = timed_steps(lambda _: karras_sample_image(
-                unet, (B, 3, S, S), sched, model_kwargs={"y": yb},
-                generator=gs, device=dev, **kw), range(n),
-                warm=0 if n == 1 else 2)
-            samplers[name] = {"median_ms": res["median_ms"],
-                              "images_per_s": B * 1e3 / res["median_ms"],
-                              "timed_calls": len(res["ms"]),
-                              "peak_mem_gib": res["peak_mem_gib"]}
-            log(f"  {name} B=16: {res['median_ms']:.1f} ms a call, "
-                f"{B * 1e3 / res['median_ms']:.1f} images/s "
-                f"({len(res['ms'])} timed), peak {res['peak_mem_gib']:.2f} "
-                "GiB")
-        out["samplers_B16"] = samplers
+    # 2. one call each of the multistep and heun samplers at B=2
+    gs = torch.Generator(dev).manual_seed(3)
+    for name, kw in (("multistep_0_22_39", dict(sampler="multistep",
+                                                ts=IMAGE_TS,
+                                                steps=IMAGE_STEPS)),
+                     ("heun_40", dict(sampler="heun", steps=IMAGE_STEPS))):
+        img = karras_sample_image(unet, (2, 3, S, S), sched,
+                                  model_kwargs={"y": y.to(dev)},
+                                  generator=gs, device=dev, **kw)
+        if img.shape != (2, 3, S, S) or not torch.isfinite(img).all():
+            raise AssertionError(f"{name} sample B=2: {tuple(img.shape)}, "
+                                 "not all finite")
+    log("  multistep 0,22,39 of 40 and heun-40, B=2: finite samples")
 
     # 3. editing: three editors at B=4 on the card, each output held to its
     # measurement (the last sigma is sigma_min), then card vs CPU narrow
@@ -3222,25 +2575,20 @@ def image_phase(counters, root: str, device: str = "cuda",
     small = copy.deepcopy(small_cpu).to(dev)
     edits = {}
     for editor in ("colorization", "inpainting", "superres"):
-        sync()
-        t0 = time.perf_counter()
         res, meas = edit(unet, editor, dev)
-        sync()
-        wall = time.perf_counter() - t0
         a, b = measured(editor, res, meas)
         meas_err = check(f"{editor} output vs its measurement", a, b,
                          dict(rtol=0, atol=MEASURE_TOL))
         ref = edit(small_cpu, editor, cpu)[0]
         err = check(f"{editor} narrow card vs CPU",
                     edit(small, editor, dev)[0].cpu(), ref, F32_TOL)
-        edits[editor] = {"wall_s": wall, "measurement_err": meas_err,
-                         "narrow_err": err}
-        log(f"  {editor} B=4: {wall:.2f} s, output vs measurement "
-            f"{meas_err:.3e}, narrow card vs CPU {err:.3e}")
+        edits[editor] = {"measurement_err": meas_err, "narrow_err": err}
+        log(f"  {editor} B=4: output vs measurement {meas_err:.3e}, narrow "
+            f"card vs CPU {err:.3e}")
     out["edits_B4"] = edits
 
-    # 4. training: one f32 CT step card vs CPU (narrow), timed CT at B=16,
-    # one CD step
+    # 4. training: one f32 CT step card vs CPU (narrow), then one CT and
+    # one CD step of the whole UNet
     lr, scales = 1e-4, 18
     opt = RAdam(lr)
 
@@ -3282,38 +2630,19 @@ def image_phase(counters, root: str, device: str = "cuda",
     del small_cpu, small
 
     params = {k: v.detach() for k, v in unet.named_parameters()}
-    if cuda:
-        B = 16
-        step = step_of(unet)
-        state = create_train_state(params, opt, 1)
-        gb = torch.Generator(dev).manual_seed(8)
-        tb_ = {"images": torch.rand(B, 3, S, S, device=dev) * 2 - 1,
-               "labels": torch.arange(B, device=dev) * 37 % 1000}
-        box = {"state": state}
-
-        def ct_step(_):
-            box["state"], box["m"] = step(box["state"], tb_, 0.95, gb)
-
-        res = timed_steps(ct_step, range(12))
-        out["ct_B16"] = {k: res[k] for k in ("median_ms", "steps_per_s",
-                                             "peak_mem_gib")}
-        out["ct_B16"]["loss"] = float(box["m"]["loss"])
-        log(f"  CT step B=16 (f32): {res['median_ms']:.1f} ms, "
-            f"{res['steps_per_s']:.2f} steps/s, peak "
-            f"{res['peak_mem_gib']:.2f} GiB, last loss "
-            f"{out['ct_B16']['loss']:.4e}")
-        del box, state
-    Bcd = 16 if cuda else 2
-    cd_state = create_train_state(params, opt, 1)
-    _, m = step_of(unet, teacher=params)(
-        cd_state, {"images": torch.rand(Bcd, 3, S, S, device=dev) * 2 - 1,
-                   "labels": torch.arange(Bcd, device=dev)}, 0.95,
-        torch.Generator(dev).manual_seed(9))
-    if not np.isfinite(float(m["loss"])):
-        raise AssertionError(f"image CD step: loss {float(m['loss'])}")
-    out["cd_loss"] = float(m["loss"])
-    log(f"  CD step B={Bcd}: loss {out['cd_loss']:.4e}")
-    del cd_state
+    Bw = 16 if cuda else 2
+    for mode, teacher, seed in (("CT", None, 8), ("CD", params, 9)):
+        _, m = step_of(unet, teacher=teacher)(
+            create_train_state(params, opt, 1),
+            {"images": torch.rand(Bw, 3, S, S, device=dev) * 2 - 1,
+             "labels": torch.arange(Bw, device=dev) * 37 % 1000}, 0.95,
+            torch.Generator(dev).manual_seed(seed))
+        loss = float(m["loss"])
+        if not np.isfinite(loss):
+            raise AssertionError(f"image {mode} step: loss {loss}")
+        out[f"{mode.lower()}_loss"] = loss
+    log(f"  CT and CD steps B={Bw}: loss {out['ct_loss']:.4e}, "
+        f"{out['cd_loss']:.4e}")
 
     # 5. cli.image_sample twice: from a flat .npz and from a reference .pt
     # of the same weights.  Both loaders must give the phase's weights bit
@@ -3341,9 +2670,8 @@ def image_phase(counters, root: str, device: str = "cuda",
     # One after the other, never at once: cuDNN picks a convolution's
     # algorithm among those whose workspace it can allocate, so two
     # processes that share the card can round differently.
-    errs, walls = {}, {}
+    errs = {}
     for src in ("unet.npz", "unet.pt"):
-        t0 = time.perf_counter()
         p = subprocess.Popen(
             [sys.executable, "-m", "cmtts_tpu_torch.cli.image_sample",
              *[a for k, v in full.items() for a in (f"--{k}", str(v))],
@@ -3361,7 +2689,6 @@ def image_phase(counters, root: str, device: str = "cuda",
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        walls[src] = time.perf_counter() - t0
         if p.returncode != 0:
             raise AssertionError(f"cli.image_sample {src} failed:\n"
                                  f"{errs[src][-3000:]}")
@@ -3379,13 +2706,12 @@ def image_phase(counters, root: str, device: str = "cuda",
     if not (np.array_equal(a_npz, a_pt) and np.array_equal(l_npz, l_pt)):
         raise AssertionError("cli.image_sample: the .npz and .pt runs differ "
                              f"(max |diff| {np.abs(a_npz.astype(int) - a_pt.astype(int)).max()})")
-    out["cli"] = {"wall_s": walls, "card_free_gib": free_gib,
+    out["cli"] = {"card_free_gib": free_gib,
                   "samples": n_samples,
                   "distinct_labels": int(len(np.unique(l_npz)))}
     log(f"  cli.image_sample {n_samples} samples (multistep 0,22,39 of 40, "
-        f"batch {bs}) from the .npz in {walls['unet.npz']:.1f} s and the "
-        f".pt in {walls['unet.pt']:.1f} s: both loaders bit-equal to the "
-        "phase's weights, equal images and labels")
+        f"batch {bs}) from the .npz and the .pt: both loaders bit-equal to "
+        "the phase's weights, equal images and labels")
     del unet, params
     if cuda:
         torch.cuda.empty_cache()
@@ -3438,7 +2764,6 @@ def image_phase(counters, root: str, device: str = "cuda",
     del disc, disc_cpu, feats
 
     # 7. the native npy loader: build, one B=32 batch of phase 6's layout
-    t0 = time.perf_counter()
     build_s = native_loader.build_library(force=True)
     pre = os.path.join(work, "pre")
     stats = write_feature_corpus(pre, 32, 0, seed=12)
@@ -3467,35 +2792,14 @@ def image_phase(counters, root: str, device: str = "cuda",
             if not same:
                 raise AssertionError(f"get_many sample {i} {k} differs")
 
-    def host_ms(fn, reps=5):
-        fn()
-        times = []
-        for _ in range(reps):
-            t1 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t1) * 1e3)
-        return statistics.median(times)
-
-    loader = {"build_s": build_s, "files": len(paths),
-              "native_ms": host_ms(lambda: ds._native.load(paths)),
-              "np_load_ms": host_ms(lambda: [np.load(q) for q in paths]),
-              "get_many_ms": host_ms(lambda: ds.get_many(idx)),
-              "serial_getitem_ms": host_ms(lambda: [ds._load_one(i)
-                                                    for i in idx]),
-              "native_loads": native_loader.native_loads}
-    out["native_loader"] = loader
+    out["native_loader"] = {"build_s": build_s, "files": len(paths),
+                            "native_loads": native_loader.native_loads}
     log(f"  native loader: built in {build_s:.2f} s; B=32 batch "
-        f"({len(paths)} files) byte-equal to np.load; files "
-        f"{loader['native_ms']:.2f} ms native vs {loader['np_load_ms']:.2f} "
-        f"ms np.load; samples {loader['get_many_ms']:.2f} ms get_many vs "
-        f"{loader['serial_getitem_ms']:.2f} ms serial (host clock, median "
-        "of 5)")
+        f"({len(paths)} files) byte-equal to np.load")
 
     shutil.rmtree(work, ignore_errors=True)
     out["launches"] = {fn.__name__: mrf_launches(fn) for fn in counters}
-    out["wall_s"] = time.perf_counter() - t_phase
-    log(f"# phase 11: {out['wall_s']:.1f} s; MRF launches "
-        f"{out['launches']} (none on this path)")
+    log(f"# phase 11: MRF launches {out['launches']} (none on this path)")
     return out
 
 
@@ -3517,10 +2821,9 @@ print(json.dumps({"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
 
 def run_script(script: str, env: dict, log_path: str, timeout: float):
     """Run ``cmtts_tpu_torch/tools/<script>`` with ``env`` added to the
-    environment, its output into ``log_path``; -> (stdout, wall s).
-    Raises when it fails."""
+    environment, its output into ``log_path``; -> its stdout.  Raises when
+    it fails."""
     path = os.path.join("cmtts_tpu_torch", "tools", script)
-    t0 = time.perf_counter()
     res = subprocess.run(["bash", path], env={**os.environ, **env},
                          cwd=os.path.dirname(os.path.abspath(__file__)),
                          capture_output=True, text=True, timeout=timeout)
@@ -3529,7 +2832,7 @@ def run_script(script: str, env: dict, log_path: str, timeout: float):
     if res.returncode != 0:
         raise AssertionError(f"{script} exited {res.returncode}:\n"
                              f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
-    return res.stdout, time.perf_counter() - t0
+    return res.stdout
 
 
 def stage_walls(stdout: str) -> dict:
@@ -3602,7 +2905,6 @@ def quality_phase(counters, root: str, device: str = "cuda",
 
     log("# phase 12: the quality loop and the tools (the ported scripts, "
         "full widths, a few steps)")
-    t_phase = time.perf_counter()
     cuda = torch.device(device).type == "cuda"
     work = os.path.join(root, "build", "chip_smoke_quality")
     shutil.rmtree(work, ignore_errors=True)
@@ -3617,11 +2919,10 @@ def quality_phase(counters, root: str, device: str = "cuda",
     os.chmod(os.path.join(bin_dir, "python"), 0o755)
     env = {"PATH": bin_dir + os.pathsep + os.environ["PATH"],
            "DEVICE": device, "TMPDIR": work}
-    out, walls = {"card": smi}, {}
+    out = {"card": smi}
     zero_launches(counters)
 
     # 1. the float32 policy, read inside a CLI subprocess
-    t0 = time.perf_counter()
     probe = subprocess.run(
         [sys.executable, "-c", TF32_PROBE, "--mode", "single", "--text",
          "Printing, in the only sense.", "--vocoder", "griffinlim",
@@ -3635,7 +2936,6 @@ def quality_phase(counters, root: str, device: str = "cuda",
     if any(flags.values()):
         raise AssertionError(f"a CLI left TF32 on: {flags}")
     out["tf32_in_cli"] = flags
-    walls["tf32_probe_s"] = time.perf_counter() - t0
 
     # 2. the quality pipeline, then again: no stage may start
     qc, voc = os.path.join(work, "qcorp"), os.path.join(work, "voc")
@@ -3648,22 +2948,19 @@ def quality_phase(counters, root: str, device: str = "cuda",
                 VOC_OUT=voc,
                 CT_ARGS=f"--log_every {ct_steps}",
                 GEN_ARGS="--tiny" if tiny else "")
-    stdout, walls["quality_pipeline_s"] = run_script(
-        "run_quality_pipeline.sh", qenv, os.path.join(work, "pipeline.log"),
-        1200)
+    stdout = run_script("run_quality_pipeline.sh", qenv,
+                        os.path.join(work, "pipeline.log"), 1200)
     stages = [s for s in QUALITY_STAGES if tiny is False or s != "vocoder"]
-    walls["stages_s"] = stage_walls(stdout)
-    if sorted(walls["stages_s"]) != sorted(stages):
-        raise AssertionError(f"pipeline stages {walls['stages_s']}")
-    again, walls["quality_pipeline_again_s"] = run_script(
-        "run_quality_pipeline.sh", qenv,
-        os.path.join(work, "pipeline_again.log"), 300)
+    out["stages_s"] = stage_walls(stdout)
+    if sorted(out["stages_s"]) != sorted(stages):
+        raise AssertionError(f"pipeline stages {out['stages_s']}")
+    again = run_script("run_quality_pipeline.sh", qenv,
+                       os.path.join(work, "pipeline_again.log"), 300)
     done = re.findall(r"== \[(\w+)\] already done ==", again)
     if done != stages or " start " in again:
         raise AssertionError(f"the second run started a stage:\n{again}")
-    log(f"  run_quality_pipeline.sh: {walls['quality_pipeline_s']:.1f} s, "
-        f"stages {walls['stages_s']}; again: {len(done)} stages already "
-        f"done in {walls['quality_pipeline_again_s']:.1f} s")
+    log(f"  run_quality_pipeline.sh: stages {out['stages_s']} (s, its own "
+        f"markers); again: {len(done)} stages already done")
     progress = glob.glob(os.path.join(qc, "output", "log", "LJSpeech_cm",
                                       "train", "progress.csv"))
     rows = open(progress[0]).read().splitlines()
@@ -3687,7 +2984,6 @@ def quality_phase(counters, root: str, device: str = "cuda",
                     for k, v in out["metrics_ct_gl"].items()))
 
     # the quality record of that run and its markdown, in process
-    t0 = time.perf_counter()
     record = collect_quality.assemble(qc, ct_steps, [], log_dir=work)
     by_ckpt = record["evaluation"]["metrics_by_checkpoint"]
     card = record["training"]["card"]
@@ -3701,13 +2997,11 @@ def quality_phase(counters, root: str, device: str = "cuda",
         render_quality.render(record)
     if f"| step_{ct_steps}_T1 |" not in md.getvalue():
         raise AssertionError(f"quality markdown:\n{md.getvalue()}")
-    walls["collect_quality_s"] = time.perf_counter() - t0
     out["record_keys"] = sorted(record)
     out["record_evaluation_keys"] = sorted(record["evaluation"])
     out["record_card"] = card
     log(f"  collect_quality + render_quality_md: keys {out['record_keys']}, "
-        f"checkpoints {sorted(by_ckpt)}, card {card}, "
-        f"{walls['collect_quality_s']:.2f} s")
+        f"checkpoints {sorted(by_ckpt)}, card {card}")
 
     # 3. vocode_dir on the card against the CPU (f32, TF32 off)
     gens = sorted(glob.glob(os.path.join(voc, "hifigan", "hifigan_gen_*.npz")))
@@ -3730,11 +3024,9 @@ def quality_phase(counters, root: str, device: str = "cuda",
     os.makedirs(mels)
     for name in sorted(os.listdir(os.path.join(qc, "pre", "mel")))[:2]:
         shutil.copy(os.path.join(qc, "pre", "mel", name), mels)
-    t0 = time.perf_counter()
     for dev_ in (device, "cpu"):
         vocode_dir(["--mel_dir", mels, "--ckpt", gen_path, "--out",
                     os.path.join(work, f"voc_{dev_}"), "--device", dev_])
-    walls["vocode_dir_card_and_cpu_s"] = time.perf_counter() - t0
     errs = []
     for name in sorted(os.listdir(os.path.join(work, f"voc_{device}"))):
         a = read_wav(os.path.join(work, f"voc_{device}", name))[0]
@@ -3749,7 +3041,6 @@ def quality_phase(counters, root: str, device: str = "cuda",
 
     # 4. GE2E and the zero-shot loop on a 6-speaker corpus, 2 held out
     zs = os.path.join(work, "zscorp")
-    t0 = time.perf_counter()
     with redirect_stdout(Tee(sys.stdout)):
         zcfg = gen_corpus(["--out", zs, "--speakers", "6",
                            "--utts_per_speaker", "8", "--holdout", "2",
@@ -3762,11 +3053,10 @@ def quality_phase(counters, root: str, device: str = "cuda",
         emb = os.path.join(zs, "ge2e", "ge2e_params.npy")
         preprocess(["--dataset", "VCTK", "--config_root", zcfg,
                     "--embedder_ckpt", emb, "--device", device])
-    walls["zs_corpus_ge2e_preprocess_s"] = time.perf_counter() - t0
     zout = os.path.join(work, "zs_run")
     # its two evals run on the host's CPU at once: half its cores each
     threads = str(max(1, (os.cpu_count() or 2) // 2))
-    _, walls["zeroshot_quality_s"] = run_script(
+    run_script(
         "run_zeroshot_quality.sh", dict(env, CORPUS=zs, STEPS="8", OUT=zout,
                                         OMP_NUM_THREADS=threads),
         os.path.join(work, "zeroshot.log"), 900)
@@ -3780,11 +3070,9 @@ def quality_phase(counters, root: str, device: str = "cuda",
         "n_synth", "cos_to_target_mean", "cos_to_others_mean",
         "target_top1_accuracy", "mcd_vs_target_gt")}
         for s, v in zs_eval.items()}
-    log(f"  run_zeroshot_quality.sh: {walls['zeroshot_quality_s']:.1f} s; "
-        f"{out['zeroshot_eval']}")
+    log(f"  run_zeroshot_quality.sh: {out['zeroshot_eval']}")
 
     # 5. extend_holdout, then the GE2E gate over the extended holdout
-    t0 = time.perf_counter()
     with redirect_stdout(Tee(sys.stdout)):
         extend_holdout(["--out", zs, "--speakers", "6", "--holdout", "2",
                         "--utts_per_speaker", "8", "--extend_utts_to", "10",
@@ -3795,21 +3083,18 @@ def quality_phase(counters, root: str, device: str = "cuda",
                           "--min_margin", "-2", "--out",
                           os.path.join(work, "ge2e_gate.json"),
                           "--device", device])
-    walls["extend_holdout_and_gate_s"] = time.perf_counter() - t0
     with open(os.path.join(work, "ge2e_gate.json")) as f:
         if json.load(f) != gate or len(gate["speakers"]) != 3:
             raise AssertionError(f"GE2E gate report {gate}")
     out["ge2e_gate"] = gate
 
     # 6. diag_pitch on the CT checkpoint
-    t0 = time.perf_counter()
     with redirect_stdout(Tee(sys.stdout)):
         diag = diag_pitch(["--dataset", "LJSpeech", "--config_root",
                            os.path.join(qc, "config"), "--restore_step",
                            str(ct_steps), "--out",
                            os.path.join(work, "diag.json"),
                            "--device", device])
-    walls["diag_pitch_s"] = time.perf_counter() - t0
     with open(os.path.join(work, "diag.json")) as f:
         if json.load(f) != diag:
             raise AssertionError("diag_pitch's JSON differs from its report")
@@ -3817,13 +3102,15 @@ def quality_phase(counters, root: str, device: str = "cuda",
 
     # 7. bench_train: one step a call against K = 8 a call, B=32 x 768,
     # over its default 32 steps (32 calls at K=1, 4 at K=8)
-    t0 = time.perf_counter()
     bench = bench_train(["--device", device]
                         + (["--batch", "2", "--t_mel", "32", "--t_txt", "8",
                             "--K", "2", "--iters", "2"] if tiny else []))
-    walls["bench_train_s"] = time.perf_counter() - t0
-    out["bench_train"] = bench
-    log(f"  bench_train: {bench}")
+    configs = {k: v for k, v in bench.items() if isinstance(v, dict)}
+    if not configs or not all(np.isfinite(v["loss"])
+                              for v in configs.values()):
+        raise AssertionError(f"bench_train: {bench}")
+    out["bench_train_keys"] = {k: sorted(v) for k, v in configs.items()}
+    log(f"  bench_train: {sorted(bench)}, finite losses")
 
     # 8. the serving bench against cli.serve
     serve_json = os.path.join(work, "serve.json")
@@ -3834,24 +3121,21 @@ def quality_phase(counters, root: str, device: str = "cuda",
         senv["VOC"] = "griffinlim"
     else:
         senv.update(VOC="hifigan", VOC_CKPT=gen_path)
-    _, walls["serve_bench_s"] = run_script(
-        "run_serve_bench.sh", senv, os.path.join(work, "serve.log"), 600)
+    run_script("run_serve_bench.sh", senv, os.path.join(work, "serve.log"),
+               600)
     with open(serve_json) as f:
         served = json.load(f)
     sweep = {r["concurrency"]: r for r in served["sweep"]}
     if sorted(sweep) != [1, 8] or any(r["errors"] for r in sweep.values()):
         raise AssertionError(f"serve bench sweep {served['sweep']}")
     out["serve"] = {"device": served["device"], "vocoder": senv["VOC"],
-                    "sweep": served["sweep"]}
-    log(f"  run_serve_bench.sh ({senv['VOC']}): "
-        + "; ".join(f"c={c} p50 {r['p50']} ms p99 {r['p99']} ms "
-                    f"{r['req_per_s']} req/s {r['batch_hist']}"
-                    for c, r in sweep.items()))
+                    "batch_hist": {c: r["batch_hist"]
+                                   for c, r in sweep.items()}}
+    log(f"  run_serve_bench.sh ({senv['VOC']}): concurrency 1 and 8 without "
+        f"errors, batches {out['serve']['batch_hist']}")
 
     out["launches"] = {fn.__name__: mrf_launches(fn) for fn in counters}
-    walls["phase_s"] = time.perf_counter() - t_phase
-    out["walls_s"] = walls
-    log(f"  phase 12: {walls['phase_s']:.1f} s; in-process MRF launches "
+    log(f"  phase 12: in-process MRF launches "
         f"{out['launches']} (the scripts' CLIs, cli.serve among them, "
         "launch theirs in subprocesses)")
     shutil.rmtree(work, ignore_errors=True)
@@ -3878,11 +3162,7 @@ def main(argv=None) -> int:
     from cmtts_tpu_torch.cli.synthesize import preprocess_english, random_cmtts
     from cmtts_tpu_torch.core.config import load_configs
     from cmtts_tpu_torch.core.masks import DEFAULT_MEL_BUCKETS, pick_bucket
-    from cmtts_tpu_torch.models.hifigan import (
-        HiFiGANConfig,
-        HiFiGANGenerator,
-        hifigan_apply_fused,
-    )
+    from cmtts_tpu_torch.models.hifigan import HiFiGANConfig, HiFiGANGenerator
     from cmtts_tpu_torch.core.device import cli_device
     from cmtts_tpu_torch.core.trace import counters as trace_counters
     from cmtts_tpu_torch.ops import mrf
@@ -3893,6 +3173,14 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    phase_s, since = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        """Each phase's wall seconds, the chip time it spends."""
+        now = time.perf_counter()
+        phase_s[name] = now - since[0]
+        since[0] = now
+        log(f"# phase {name}: {phase_s[name]:.1f} s")
 
     # -- phase 1 -----------------------------------------------------------
     log(f"# device: {torch.cuda.get_device_name(0)} | {smi}")
@@ -3902,6 +3190,7 @@ def main(argv=None) -> int:
     log(f"# kernel build: {build_s:.1f} s (nvcc, sm_90a) -> "
         f"{os.path.relpath(mrf.library_path())}")
     hgmma = inspect_library(mrf.library_path())
+    phase_done("1")
 
     # -- phase 2: kernel vs plain ------------------------------------------
     torch.manual_seed(0)
@@ -4029,6 +3318,7 @@ def main(argv=None) -> int:
         timing[dt]["streamed"] + timing[dt]["fused"]) for dt in dtypes}
     stages_b1 = {str(dt).split(".")[-1]: stage_rows(timing_b1[dt])
                  for dt in dtypes}
+    phase_done("2")
     if kernels_only:
         print(json.dumps({"build_s": build_s, "stages_B8": stages_b8,
                           "stages_B1_mel256": stages_b1}))
@@ -4043,7 +3333,7 @@ def main(argv=None) -> int:
     vocoder = HiFiGANGenerator()
     tokens = preprocess_english(TEXT, cfg.data.lexicon_path,
                                 list(cfg.data.text_cleaners))
-    hop, sr = cfg.stft.hop_length, cfg.stft.sampling_rate
+    hop = cfg.stft.hop_length
     counters = (mrf.fused_mrf_stage, mrf.fused_mrf_stage_streamed)
     zero_launches(counters)
     log("# phase 3: synthesis (LJSpeech config, random weights, bf16)")
@@ -4077,23 +3367,19 @@ def main(argv=None) -> int:
         f"{int(lens[0])}; max|err| mel vs CPU f32 {err_mel:.3e}, "
         f"wav vs plain vocoder {err_voc:.3e}")
 
-    def rtf(synth, seqs, reps=5, **kw):
-        return timed_rtf(synth, seqs, counters, hop, sr, reps, **kw)
+    synthesis = {"B1_T1": {"err_mel": err_mel, "err_wav": err_voc}}
 
-    results, walls = {}, {}
-    r, wall, audio = rtf(synth1, [tokens])
-    results["B1_T1"] = r
-    log(f"  RTF B=1 T=1: {r:.6f} (median wall {wall * 1e3:.2f} ms for "
-        f"{audio:.3f} s of audio)")
+    # one call each of B=1 from a seed, and of B=8 at T=1 and T=2
     batch = [np.random.RandomState(i).randint(13, 140, 96).astype(np.int32)
              for i in range(8)]
-    for T in (1, 2):
-        synth = synth1 if T == 1 else Synthesizer(cfg, model, vocoder, T=2)
-        r, wall, audio = rtf(synth, batch, mel_bucket=1024)
-        results[f"B8_T{T}"] = r
-        walls[f"B8_T{T}"] = wall * 1e3
-        log(f"  RTF B=8 T={T} (mel bucket 1024): {r:.6f} (median wall "
-            f"{wall * 1e3:.2f} ms for {audio:.3f} s of audio)")
+    for synth, seqs, kw in (
+            (synth1, [tokens], {}),
+            (synth1, batch, {"mel_bucket": 1024}),
+            (Synthesizer(cfg, model, vocoder, T=2), batch,
+             {"mel_bucket": 1024})):
+        counted_call(synth, seqs, **kw)
+    log("  B=1 T=1 from a seed, B=8 T=1 and T=2 (mel bucket 1024): MRF "
+        "launches [3, 1] a call, finite outputs")
     # B=1 in float32 (denoiser and vocoder stages): the float32 kernels'
     # users, against the plain float32 vocoder on the same mel
     synth32 = Synthesizer(cfg, model, vocoder, T=1,
@@ -4106,6 +3392,7 @@ def main(argv=None) -> int:
         wav32_plain = vocoder(torch.from_numpy(mel32).to(dev)).cpu()
     err_voc32 = check("B=1 f32 vocoder kernels vs plain f32 vocoder",
                       torch.from_numpy(wav32), wav32_plain, F32_TOL)
+    synthesis["B1_T1_float32"] = {"err_wav": err_voc32}
     log(f"  B=1 T=1 float32: max|err| wav vs plain vocoder {err_voc32:.3e}")
     launches = {fn.__name__: mrf_launches(fn) for fn in counters}
     if min(launches.values()) == 0:
@@ -4113,23 +3400,6 @@ def main(argv=None) -> int:
                              f"{launches}")
     log(f"# main-path launches: {launches}, of which float32 "
         f"{launches_f32}")
-
-    # the vocoder's share of the B=8 wall: hifigan_apply_fused alone on a
-    # mel of the same bucket, timed like the synthesis calls (after the
-    # launch counts were read, so they hold the main path's run only)
-    mel8 = torch.randn(8, 1024, cfg.stft.n_mel_channels, device=dev,
-                       generator=torch.Generator(device=dev).manual_seed(4))
-    times = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        hifigan_apply_fused(synth1.vocoder, mel8, synth1.vocoder_packed)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    voc_ms = statistics.median(times[1:]) * 1e3
-    results["B8_vocoder_ms"] = voc_ms
-    log(f"  vocoder alone, B=8 mel 1024: median {voc_ms:.2f} ms "
-        f"({voc_ms / walls['B8_T1']:.1%} of the B=8 T=1 wall)")
 
     # the CUDA-graph replays against the same calls made eagerly: a fresh
     # synthesizer each, so that each case captures its own graphs
@@ -4148,7 +3418,8 @@ def main(argv=None) -> int:
             f"{res['replay_ms']:.2f} ms; new controls eager "
             f"{res['eager_fresh_ms']:.2f} ms, capturing "
             f"{res['capture_call_ms']:.2f} ms; counters {res['counts']}")
-    results["graph_vs_eager"] = graphs
+    synthesis["launches"] = launches
+    synthesis["graph_vs_eager"] = graphs
     # device memory as graphs of one shape accumulate, up to MAX_GRAPHS
     for label, seqs, kw in (("B1_T1", [tokens], {}),
                             ("B8_T1", batch, {"mel_bucket": 1024})):
@@ -4161,38 +3432,42 @@ def main(argv=None) -> int:
             f"from the 10th, its own buffers {mem['static_mb_per_graph']:.2f}"
             " MB")
 
+    phase_done("3")
+    root = os.path.dirname(os.path.abspath(__file__))
+
     # -- phase 5: zero-shot and samplers at full VCTK width ----------------
-    zero_shot = zero_shot_phase(counters, vocoder,
-                                os.path.dirname(os.path.abspath(__file__)))
-    results["zero_shot"] = zero_shot
+    zero_shot = zero_shot_phase(counters, vocoder, root)
+    synthesis["zero_shot"] = zero_shot
+    phase_done("5")
 
     # -- phase 6: consistency training at full LJSpeech width --------------
-    train = training_phase(counters,
-                           os.path.dirname(os.path.abspath(__file__)))
+    train = training_phase(counters, root)
+    phase_done("6")
 
     # -- phase 7: wav -> features -> train -> synthesize -> score ---------
-    data = data_phase(counters, os.path.dirname(os.path.abspath(__file__)))
+    data = data_phase(counters, root)
+    phase_done("7")
 
     # -- phase 8: serving and reference checkpoints -------------------------
-    served = serve_phase(counters, os.path.dirname(os.path.abspath(__file__)),
-                         results["B8_T1"])
+    served = serve_phase(counters, root)
+    phase_done("8")
 
     # -- phase 9: the vocoder and speaker-encoder trainers -----------------
-    trainers = trainers_phase(counters,
-                              os.path.dirname(os.path.abspath(__file__)))
+    trainers = trainers_phase(counters, root)
+    phase_done("9")
 
     # -- phase 10: ranks and the MOS metric nets ---------------------------
-    parallel = parallel_phase(counters,
-                              os.path.dirname(os.path.abspath(__file__)))
+    parallel = parallel_phase(counters, root)
+    phase_done("10")
 
     # -- phase 11: the image-domain CM, GAN objectives, native loader ------
-    image = image_phase(counters, os.path.dirname(os.path.abspath(__file__)))
+    image = image_phase(counters, root)
     image["card"] = smi
+    phase_done("11")
 
     # -- phase 12: the quality loop and the tools --------------------------
-    quality = quality_phase(counters,
-                            os.path.dirname(os.path.abspath(__file__)),
-                            smi=smi)
+    quality = quality_phase(counters, root, smi=smi)
+    phase_done("12")
 
     # -- phase 4: summary lines --------------------------------------------
     kernels = []
@@ -4243,7 +3518,7 @@ def main(argv=None) -> int:
                 # timed only); float32: no single PyTorch call
                 "library_ms": (None if f32 else
                                sum(r_["library_ms"] for r_ in rows))})
-    print(json.dumps({"rtf": results, "build_s": build_s,
+    print(json.dumps({"synthesis": synthesis, "build_s": build_s,
                       "stages_B8": stages_b8, "stages_B1_mel256": stages_b1}))
     print(json.dumps({"train": train}))
     print(json.dumps({"data": data}))
@@ -4256,7 +3531,7 @@ def main(argv=None) -> int:
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}, "phase_s": phase_s}))
     return 0
 
 

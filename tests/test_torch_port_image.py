@@ -129,29 +129,6 @@ def test_unet_bridge_round_trip_is_bit_exact(pair):
         assert v.shape == flat[k].shape, k
 
 
-@pytest.mark.parametrize("widths", [
-    dict(image_size=16, num_channels=32, num_res_blocks=1,
-         channel_mult="1,2", attention_resolutions="8", class_cond=True,
-         num_head_channels=16, use_scale_shift_norm=True,
-         resblock_updown=True),
-    dict(image_size=16, num_channels=32, num_res_blocks=2,
-         channel_mult="1,2,2", attention_resolutions="8,4")])
-def test_unet_flop_counts_what_torch_counts(widths):
-    """``chip_smoke.py::unet_flop``, which the card's TFLOP/s divides by,
-    equals torch's FLOP counter over one forward (convolutions, matmuls,
-    attention) for the up/down ResBlocks and for the conv resamplers."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    import chip_smoke
-    from cmtts_tpu_torch.models.unet import create_image_unet
-
-    unet = create_image_unet(**widths).eval()
-    y = torch.zeros(2, dtype=torch.long) if widths.get("class_cond") else None
-    with FlopCounterMode(display=False) as counter, torch.no_grad():
-        unet(torch.zeros(2, 3, S, S), torch.ones(2), y)
-    assert chip_smoke.unet_flop(unet.cfg, 2) == counter.get_total_flops()
-
-
 def test_init_like_flax_matches_flax_init_of_unet_and_jcu():
     """A fresh UNet and JCU discriminator draw as flax does: zeros where
     flax has zeros (the three zero-init layers, biases), ones for the
