@@ -618,6 +618,39 @@ def reference_wav(seed: int, seconds: float = 3.0, sr: int = 22050):
     return (0.2 * tone * gate + 0.01 * rs.randn(n)).astype(np.float32)
 
 
+def ds_front_end_vs_numpy(ds, wavs, sr: int) -> dict:
+    """The DeepSpeaker embedder ``ds``'s front end, on its device, against
+    the numpy one (``ds_sample_frames(ds_fbank_frames(wav, sr))``) over
+    ``wavs``: the worst absolute deviation of the standardised features
+    (``feat_err``), the worst relative error of ``predict_embedding``
+    against the same ResCNN fed the numpy features (``embed_err``, as the
+    benchmark's check reads it), and the rise of the ``embed.calls`` and
+    ``embed.fbank_device`` counters."""
+    import numpy as np
+    import torch
+
+    from cmtts_tpu_torch.core import trace
+    from cmtts_tpu_torch.models.speaker import ds_fbank_frames, ds_sample_frames
+
+    names = ("embed.calls", "embed.fbank_device")
+    before = trace.counters()
+    feat_err = embed_err = 0.0
+    for wav in wavs:
+        want = ds_sample_frames(ds_fbank_frames(wav, sr))
+        emb = ds.predict_embedding(wav, sr).astype(np.float64)
+        got = ds.front_end(wav)[0, :, :, 0].cpu().numpy()
+        feat_err = max(feat_err, float(np.abs(got - want).max()))
+        with torch.no_grad():
+            ref = ds.model(torch.as_tensor(want[None, :, :, None],
+                                           device=ds.device))[0]
+        ref = ref.cpu().numpy().astype(np.float64)
+        embed_err = max(embed_err, float(np.linalg.norm(emb - ref)
+                                         / np.linalg.norm(ref)))
+    after = trace.counters()
+    return {"feat_err": feat_err, "embed_err": embed_err,
+            **{n: after.get(n, 0) - before.get(n, 0) for n in names}}
+
+
 def zero_shot_phase(counters, vocoder, root: str) -> dict:
     """Phase 5 at full VCTK width (random weights from a seed): embedders
     on the card against the CPU, zero-shot synthesis at B=1 and B=8, every
@@ -668,6 +701,20 @@ def zero_shot_phase(counters, vocoder, root: str) -> dict:
     emb, ds = embed["DeepSpeaker"]
     if emb.shape[0] != cfg.model.external_speaker_dim:
         raise AssertionError(f"DeepSpeaker width {emb.shape[0]}")
+    # its front end on the card against numpy's, over the phase's clips
+    clips = [reference_wav(0), reference_wav(1)] + [
+        reference_wav(10 + i, 1.5) for i in range(8)]
+    fe = ds_front_end_vs_numpy(ds, clips, sr)
+    limit = cell_limit("vctk_zs_b1", "embed_err")
+    log(f"  DeepSpeaker front end on the card vs numpy over {len(clips)} "
+        f"clips: max|err| features {fe['feat_err']:.3e}, embedding "
+        f"relative {fe['embed_err']:.3e} (limit {limit:g}); embed.calls "
+        f"+{fe['embed.calls']}, embed.fbank_device "
+        f"+{fe['embed.fbank_device']}")
+    if (fe["feat_err"] > 1e-4 or fe["embed_err"] > limit
+            or {fe["embed.calls"], fe["embed.fbank_device"]} != {len(clips)}):
+        raise AssertionError(f"DeepSpeaker front end on the card: {fe}")
+    out["ds_front_end"] = fe
 
     zero_launches(counters)
 

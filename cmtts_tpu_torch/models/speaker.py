@@ -8,7 +8,9 @@
   features, Dense(512), L2 norm; 64-fbank 160-frame input slices.
 
 Both are ordinary torch modules (cuDNN runs the convs and the LSTM on the
-card).  The host front-ends are numpy, copied verbatim.  A checkpoint is a
+card).  The host front-ends are numpy, copied verbatim; GE2E embeds
+through its own, DeepSpeaker through ``DeepSpeakerFrontEnd``, the same
+fbank in torch on the embedder's device.  A checkpoint is a
 flat ``a/b/c`` npz of the flax variables, loaded through the bridge: the
 GE2E params, or DeepSpeaker's ``params/...`` and ``batch_stats/...``.
 The reference formats load too, through numpy converters copied from the
@@ -32,7 +34,7 @@ from torch import nn
 from cmtts_tpu_torch.audio.stft import mel_filterbank, stft_magnitudes
 from cmtts_tpu_torch.convert import load_flax_params
 from cmtts_tpu_torch.core.device import resolve_device
-from cmtts_tpu_torch.core.trace import span
+from cmtts_tpu_torch.core.trace import count, span
 from cmtts_tpu_torch.models.hifigan import unflatten_npz
 from cmtts_tpu_torch.models.init import lecun_normal_
 
@@ -334,21 +336,91 @@ def ds_sample_frames(frames: np.ndarray, num_frames: int = DS_NUM_FRAMES,
     return np.tile(frames, (reps, 1))[:num_frames]
 
 
+class DeepSpeakerFrontEnd:
+    """``ds_sample_frames(ds_fbank_frames(wav, sr))`` (``rng=None``) in
+    float32 torch on ``device``, from the clip's samples: the clip goes to
+    the device once, and the STFT (cuFFT on the card), the fbank product,
+    the log and the standardisation run there.  The window and the mel
+    basis are built once; the reflect-padding gather, which reproduces
+    ``np.pad(mode="reflect")`` for any clip length, once per length (the
+    last ``MAX_LENGTHS`` lengths are kept)."""
+
+    MAX_LENGTHS = 8
+
+    def __init__(self, sr: int, device: torch.device):
+        self.sr, self.device = sr, device
+        self.hop = int(sr * 0.01)
+        win = int(sr * 0.025)
+        self.n_fft = _next_pow2(win)
+        # the window as stft_magnitudes builds it (float64, then float32)
+        n = np.arange(win)
+        window = (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win)).astype(np.float32)
+        lpad = (self.n_fft - win) // 2
+        window = np.pad(window, (lpad, self.n_fft - win - lpad))
+        self.window = torch.from_numpy(window).to(device)
+        self.basis_t = torch.from_numpy(np.ascontiguousarray(mel_filterbank(
+            sr, self.n_fft, DS_NUM_FBANKS, fmin=0.0, fmax=sr / 2).T)).to(device)
+        self._reflect: dict[int, torch.Tensor] = {}
+
+    def reflect_index(self, n: int) -> torch.Tensor:
+        """Sample index of the clip centre-padded by ``n_fft // 2`` on each
+        side (raises for an empty clip, as ``np.pad`` does)."""
+        idx = self._reflect.pop(n, None)
+        if idx is None:
+            idx = torch.from_numpy(np.pad(np.arange(n), self.n_fft // 2,
+                                          mode="reflect")).to(self.device)
+            if len(self._reflect) >= self.MAX_LENGTHS:
+                del self._reflect[next(iter(self._reflect))]   # the oldest
+        self._reflect[n] = idx
+        return idx
+
+    def log_fbank(self, wav: np.ndarray) -> torch.Tensor:
+        """(frames, 64) log fbank of ``wav``, before the standardisation."""
+        wav = np.asarray(wav, np.float32)
+        x = torch.from_numpy(wav).to(self.device)[self.reflect_index(len(wav))]
+        # the padded clip holds len(wav) + n_fft samples, so every frame
+        # lies inside it and numpy's index clamp never binds
+        frames = x.unfold(0, self.n_fft, self.hop) * self.window
+        mag = torch.fft.rfft(frames, n=self.n_fft, dim=-1).abs()
+        return torch.log(torch.clamp((mag * mag) @ self.basis_t, min=1e-10))
+
+    def __call__(self, wav: np.ndarray) -> torch.Tensor:
+        """(1, 160, 64, 1) standardised log-fbank frames of ``wav``."""
+        feat = self.log_fbank(wav)
+        feat = (feat - feat.mean(dim=0)) / (feat.std(dim=0, correction=0)
+                                            + 1e-9)
+        if len(feat) < DS_NUM_FRAMES:
+            feat = feat.repeat(-(-DS_NUM_FRAMES // len(feat)), 1)
+        # laid out as (1, 1, 160, 64), so that the ResCNN's permute gives
+        # a plain NCHW tensor: with C = 1 the contiguous (1, 160, 64, 1)
+        # permutes to strides that read as channels_last, and the ResCNN
+        # then runs in NHWC (on the H100, 260 kernels a call against 154)
+        return feat[:DS_NUM_FRAMES][None, None].permute(0, 2, 3, 1)
+
+
 class DeepSpeakerInference:
     """One fixed 160-frame slice per utterance -> embedding, on ``device``
-    (``cuda`` unless asked otherwise); ``model`` moves there."""
+    (``cuda`` unless asked otherwise); ``model`` moves there, and the
+    front end (:class:`DeepSpeakerFrontEnd`) runs there too.  Counts
+    ``embed.calls`` per embedding and ``embed.fbank_device`` per one whose
+    front end ran on a CUDA device."""
 
     def __init__(self, model: DeepSpeakerResCNN,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, sr: int = 22050):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.front_end = DeepSpeakerFrontEnd(sr, self.device)
 
     @torch.no_grad()
     def predict_embedding(self, wav: np.ndarray, sr: int = 22050) -> np.ndarray:
+        count("embed.calls")
+        if self.device.type == "cuda":
+            count("embed.fbank_device")
         with span("embed.fbank"):
-            frames = ds_sample_frames(ds_fbank_frames(wav, sr))
+            if sr != self.front_end.sr:
+                self.front_end = DeepSpeakerFrontEnd(sr, self.device)
+            x = self.front_end(wav)
         with span("embed.rescnn"):
-            x = torch.as_tensor(frames[None, :, :, None], device=self.device)
             return self.model(x)[0].cpu().numpy()
 
 
@@ -515,7 +587,8 @@ class PreDefinedEmbedder:
         self.sampling_rate = cfg.stft.sampling_rate
         if self.embedder_type == "DeepSpeaker":
             self._impl = DeepSpeakerInference(
-                deepspeaker_from_checkpoint(ckpt_path), device)
+                deepspeaker_from_checkpoint(ckpt_path), device,
+                self.sampling_rate)
         elif self.embedder_type == "GE2E":
             self._impl = GE2EInference(ge2e_from_checkpoint(ckpt_path), device)
         else:

@@ -195,3 +195,113 @@ def test_embedder_without_checkpoint_and_device():
     _, none_cfg = both_configs(speaker_embedder="none")
     with pytest.raises(ValueError, match="unknown speaker embedder"):
         PreDefinedEmbedder(none_cfg, device="cpu")
+
+
+# The DeepSpeaker front end in torch (``DeepSpeakerFrontEnd``, what
+# ``DeepSpeakerInference`` embeds through) against the numpy copy in the
+# JAX package, float32 on both sides.  Largest deviation of the
+# standardised features measured on the CPU: 2.9e-6 (3 s), 2.6e-6 (2 s),
+# 1.5e-6 (0.5 s), 1.2e-5 over 500-sample clips of six seeds, 0 for one
+# frame: the FFT, the fbank product and the reductions round in other
+# orders than numpy's.
+FRONT_END_ATOL = 1e-4
+FRONT_END_CLIPS = {
+    "3s": lambda: speech_like(3.0, seed=5),
+    "2s": lambda: speech_like(2.0),
+    "0.5s_tiled": lambda: speech_like(0.5),
+    # shorter than the 512-sample reflect pad: numpy reflects again
+    "500_samples": lambda: speech_like(1.0)[5000:5500],
+    "100_samples_one_frame": lambda: speech_like(1.0)[5000:5100],
+    "1_sample": lambda: np.array([0.3], np.float32),
+}
+
+
+@pytest.mark.parametrize("clip", list(FRONT_END_CLIPS))
+def test_deepspeaker_front_end_matches_numpy(clip):
+    from cmtts_tpu.models import speaker as js
+    from cmtts_tpu_torch.models.speaker import DeepSpeakerFrontEnd
+
+    wav = FRONT_END_CLIPS[clip]()
+    got = DeepSpeakerFrontEnd(22050, torch.device("cpu"))(wav)
+    assert got.shape == (1, 160, 64, 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got[0, :, :, 0].numpy(),
+                               js.ds_sample_frames(js.ds_fbank_frames(wav)),
+                               rtol=0, atol=FRONT_END_ATOL)
+
+
+def test_deepspeaker_front_end_two_frames_and_empty():
+    """A clip of 221-439 samples has two frames, so each feature is +-1
+    from a bin's two values and their spread.  The log fbank agrees to an
+    ulp (9.5e-7 measured, at -5.6 to -10.6); a bin whose two values differ
+    by 1.3e-3 turns numpy's float32 mean, rounded by half an ulp, into
+    1.00037 / -0.99963 where torch gives +-0.99999845 (3.7e-4).  An empty
+    clip fails as numpy's reflect pad fails."""
+    from cmtts_tpu.audio.stft import mel_filterbank, stft_magnitudes
+    from cmtts_tpu.models import speaker as js
+    from cmtts_tpu_torch.models.speaker import DeepSpeakerFrontEnd
+
+    fe = DeepSpeakerFrontEnd(22050, torch.device("cpu"))
+    wav = speech_like(1.0, seed=2)[5000:5300]
+    mag = stft_magnitudes(wav, n_fft=1024, win_length=551, hop_length=220)
+    want = np.log(np.maximum((mag ** 2) @ mel_filterbank(
+        22050, 1024, 64, fmin=0.0, fmax=11025.0).T, 1e-10))
+    got = fe.log_fbank(wav).numpy()
+    assert got.shape == want.shape == (2, 64)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(fe(wav)[0, :, :, 0].numpy(),
+                               js.ds_sample_frames(js.ds_fbank_frames(wav)),
+                               rtol=0, atol=1e-3)
+    empty = np.zeros(0, np.float32)
+    with pytest.raises(ValueError, match="can't extend empty axis") as e:
+        js.ds_fbank_frames(empty)
+    with pytest.raises(ValueError, match=str(e.value)):
+        fe(empty)
+
+
+def test_deepspeaker_embedding_counts_and_front_end_on_torch(
+        deepspeaker_vars):
+    """``embed.calls`` counts each embedding, ``embed.fbank_device`` none
+    on the CPU; the embedding is the ResCNN's on the numpy features
+    within the benchmark's ``embed_err`` limit (5e-5; 6e-7 measured on
+    the cell's voices)."""
+    from cmtts_tpu.models import speaker as js
+    from cmtts_tpu_torch.convert import load_flax_params
+    from cmtts_tpu_torch.core import trace
+    from cmtts_tpu_torch.models.speaker import (
+        DeepSpeakerInference,
+        DeepSpeakerResCNN,
+    )
+
+    model = load_flax_params(DeepSpeakerResCNN(), deepspeaker_vars["params"],
+                             deepspeaker_vars["batch_stats"])
+    ds = DeepSpeakerInference(model, "cpu")
+    before = trace.counters()
+    for seed in (5, 6):
+        wav = speech_like(3.0, seed=seed)
+        emb = ds.predict_embedding(wav)
+        with torch.no_grad():
+            want = ds.model(t(js.ds_sample_frames(js.ds_fbank_frames(wav))
+                              [None, :, :, None]))[0].numpy()
+        assert np.linalg.norm(emb - want) / np.linalg.norm(want) < 5e-5
+    after = trace.counters()
+    assert after["embed.calls"] - before.get("embed.calls", 0) == 2
+    assert after.get("embed.fbank_device", 0) == before.get(
+        "embed.fbank_device", 0)
+
+
+def test_deepspeaker_front_end_feeds_the_rescnn_nchw():
+    """The ResCNN's convs run in NCHW on the front end's tensor, as on a
+    copied numpy array: a contiguous (1, 160, 64, 1) permutes to strides
+    that read as channels_last, which the convs would carry through."""
+    from cmtts_tpu_torch.models.speaker import (
+        DeepSpeakerFrontEnd,
+        DeepSpeakerResCNN,
+        _same_pad,
+    )
+
+    x = DeepSpeakerFrontEnd(22050, torch.device("cpu"))(speech_like(3.0))
+    conv = DeepSpeakerResCNN().stage_0.conv
+    with torch.no_grad():
+        y = conv(_same_pad(x.permute(0, 3, 1, 2), 5, 2))
+    assert y.is_contiguous()
+    assert not y.is_contiguous(memory_format=torch.channels_last)

@@ -322,6 +322,30 @@ def test_graph_memory_on_the_card(card, case):
     assert res["reserved_mb_per_graph"] <= 2 * res["static_mb_per_graph"] + 1
 
 
+@pytest.mark.card
+def test_deepspeaker_front_end_on_the_card(card):
+    """The DeepSpeaker front end on the card (cuFFT) against the numpy one
+    over six seeded 3 s clips (``chip_smoke.ds_front_end_vs_numpy``): the
+    features within 1e-4, the embedding within the ``vctk_zs_b1`` cell's
+    ``embed_err`` limit of the ResCNN fed the numpy features, and every
+    embedding's front end counted as run on the card."""
+    import chip_smoke
+    from cmtts_tpu_torch.models.speaker import (
+        DeepSpeakerInference,
+        DeepSpeakerResCNN,
+    )
+
+    torch.manual_seed(0)
+    ds = DeepSpeakerInference(DeepSpeakerResCNN(), card)
+    wavs = [chip_smoke.reference_wav(seed) for seed in range(6)]
+    res = chip_smoke.ds_front_end_vs_numpy(ds, wavs, 22050)
+    print(res)
+    assert res["feat_err"] <= 1e-4
+    assert res["embed_err"] < chip_smoke.cell_limit("vctk_zs_b1",
+                                                    "embed_err")
+    assert res["embed.fbank_device"] == res["embed.calls"] == len(wavs)
+
+
 def test_ct_step_spans_and_state_unchanged():
     from cmtts_tpu_torch.train.loop import batch_to_device, make_train_step
     from cmtts_tpu_torch.train.state import RAdam, create_train_state
